@@ -1,0 +1,117 @@
+"""Port parity, scene layer: built-in scenes, the numpy bridge and the
+megakernel's packed tables, array for array against the JAX package."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_path_tracer as tpt
+from tpu_path_tracer.kernels.pallas import megakernel as jmk
+
+import tpu_path_tracer_torch as pt
+from tpu_path_tracer_torch.kernels import megakernel as tmk
+
+SCENES = {
+    "reference": (lambda m: m.builtin.reference_scene(), {}),
+    "reference_mini": (lambda m: m.builtin.reference_scene(mini=True), {}),
+    "reference_no_mesh": (
+        lambda m: m.builtin.reference_scene(include_mesh=False), {}),
+    "cornell": (lambda m: m.builtin.cornell_box(), {}),
+}
+
+
+def _leaves(scene):
+    """(path, array) of every scene field except the light index."""
+    out = []
+    for group in ("materials", "spheres", "quads", "triangles"):
+        g = getattr(scene, group)
+        for f in g._fields:
+            out.append((f"{group}.{f}", getattr(g, f)))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_builtin_scene_equals_jax(name):
+    """Tolerance: none.  Floats come out float32 and indices int64; the
+    numpy bridge of the JAX scene gives the same arrays."""
+    build, _ = SCENES[name]
+    jscene, jmeta, _ = build(tpt)
+    tscene, tmeta, _ = build(pt)
+    bridged = pt.scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
+    assert dataclasses.asdict(tmeta) == dataclasses.asdict(jmeta)
+    assert tscene.light_index == int(jscene.light_index)
+    assert bridged.light_index == tscene.light_index
+    assert tscene.bvh is None and bridged.bvh is None
+    for (path, t), (_, b), (_, j) in zip(_leaves(tscene), _leaves(bridged),
+                                         _leaves(jscene)):
+        j = np.asarray(j)
+        want = torch.float32 if np.issubdtype(j.dtype, np.floating) \
+            else torch.int64
+        assert t.dtype == want and b.dtype == want, path
+        np.testing.assert_array_equal(t.numpy(), j, err_msg=path)
+        np.testing.assert_array_equal(b.numpy(), j, err_msg=path)
+
+
+def test_scene_from_numpy_casts_float64():
+    """A float64 array (as ``Camera.view_matrix`` math can produce) comes
+    out float32, and an int32 index array int64."""
+    jscene, _, _ = tpt.builtin.cornell_box()
+    np_scene = jax.tree.map(lambda x: np.asarray(x).astype(
+        np.float64 if np.issubdtype(np.asarray(x).dtype, np.floating)
+        else np.int32), jscene)
+    scene = pt.scene_from_numpy(np_scene, "cpu")
+    assert scene.quads.q.dtype == torch.float32
+    assert scene.quads.material_id.dtype == torch.int64
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_pack_tables_equal(name):
+    """Tolerance: none — the JAX column layout, column for column.  An
+    empty family is the one difference: the JAX package pads it with a
+    zero row for its TPU block shapes, the port packs no rows."""
+    build, _ = SCENES[name]
+    jscene, _, _ = build(tpt)
+    tscene, _, _ = build(pt)
+    counts = (tscene.spheres.count, tscene.quads.count,
+              tscene.triangles.count, 1)
+    for j, t, n in zip(jmk.pack_tables(jscene), tmk.pack_tables(tscene),
+                       counts):
+        j = np.asarray(j)
+        assert t.shape == (n, j.shape[1])
+        np.testing.assert_array_equal(t.numpy(), j[:n])
+        assert not j[n:].any()
+
+
+def test_empty_families_pack_no_rows():
+    b = pt.SceneBuilder()
+    m = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
+    b.add_sphere([0, 0, 0], 0.5, m)
+    scene, meta = b.build()
+    sph, quad, tri, light = tmk.pack_tables(scene)
+    assert sph.shape == (1, tmk.SPH_COLS)
+    assert quad.shape == (0, tmk.QUAD_COLS)
+    assert tri.shape == (0, tmk.TRI_COLS)
+    assert light.shape == (1, tmk.LIGHT_COLS) and not light.any()
+    assert meta.traversal == "none" and not meta.has_light
+
+
+def test_bvh_scene_raises():
+    """A scene beyond the brute-force sweep needs a BVH, which the port
+    does not build yet: it says so instead of building something else."""
+    from tpu_path_tracer_torch.scene.builder import BRUTE_FORCE_MAX_TRIS
+
+    b = pt.SceneBuilder()
+    m = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
+    cube = pt.procedural.cube()
+    for k in range(BRUTE_FORCE_MAX_TRIS // cube.num_triangles + 1):
+        b.add_mesh(cube, m, pt.Transform().update(
+            pt.Transform.translate(3.0 * k, 0, 0)))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        b.build()
+    small = pt.SceneBuilder()
+    small.add_mesh(cube, small.add_material("w", pt.LAMBERTIAN, [1, 1, 1]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        small.build(bvh="sah")
