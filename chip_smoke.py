@@ -20,7 +20,20 @@ Phases, each printed on its own line; any failure exits non-zero:
 5. the main path: ``Renderer.render_animation(16)`` of the reference scene
    at 512x512 through the megakernel, with its launch count;
 6. frame times of the kernel and of the plain version at 512x512, and a
-   torch.profiler breakdown of the main path's device time.
+   torch.profiler breakdown of the main path's device time;
+7. grad_vs_plain: the CUDA backward kernel against autograd of the
+   wavefront on the card, from the same PCG states, at parameter level
+   (``diff.params``): Cornell NEE at 64x64 with 4 and 6 bounces, the
+   reference scene with every geometry group and the view matrix, a
+   stratified spp 4 case, the 4-triangle tent, and the training path's own
+   512x512 shapes; then the unroll-budget error on the card;
+8. train: the training path, ``dist.render_dist.make_train_step`` at
+   512x512 on the Cornell box (NEE, emission and BSDF parameters, through
+   the kernels) for 10 steps, as ``cli train`` sets it up, with the launch
+   counts of both kernels;
+9. train timing: fwd+bwd+Adam step times through the kernels and through
+   the wavefront, in turns, the backward alone of each, and the backward
+   kernel's device time from torch.profiler.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -39,6 +52,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 KERNEL_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_fwd.cu"
 KERNEL_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:765"
+BWD_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_bwd.cu"
+BWD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:804"
 
 # Phase 3: per-pixel tolerance of the JAX package's own kernel parity tests
 # (tests/test_pallas.py:52).  The kernel and the wavefront evaluate sinf,
@@ -65,6 +80,18 @@ KERNEL_MEAN_RTOL = 1e-3
 GOLDEN_RTOL, GOLDEN_ATOL = 1e-3, 5e-3
 GOLDEN_MIN_SHARE = 0.95
 GOLDEN_MEAN_RTOL = 0.015
+# Phase 7: tests/test_pallas.py:160-167, the JAX package's kernel gradient
+# tolerance: every gradient within 2e-3 of its group's largest.  The
+# backward sums table gradients with atomics, in an order that changes
+# from run to run, and the wavefront's autograd sums in another order.
+GRAD_RTOL = 2e-3
+GRAD_ATOL = 1e-6      # floor of a group's scale (test_pallas.py:160)
+GRAD_LOSS_RTOL = 1e-5
+# The training path (phases 8-9): the JAX package's headline training step
+# (bench.py:146), Cornell box, 512x512, 4 bounces, NEE on.
+TRAIN_KW = dict(width=512, height=512, max_bounces=4,
+                importance_sampling=True)
+TRAIN_GROUPS = ("emission", "bsdf")
 
 
 class SmokeFailure(Exception):
@@ -287,11 +314,29 @@ def timing_phase(torch, pt, device, smi, warmup=2, frames=10):
     return out
 
 
+def device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_rows(prof):
+    """The device kernels of a profile, by name, busiest first.  A CPU op
+    that launched a kernel reports the same device time again, and so does
+    a user annotation (the optimizer's step), so both are left out."""
+    from torch.autograd import DeviceType
+
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)}
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
+                   and e.key not in annotations),
+                  key=device_us, reverse=True)
+
+
 def profile_phase(torch, pt, device, frame_ms, frames=8):
     """Device time of the main path by kernel (torch.profiler), and the
     share of a frame's wall time (phase 5, unprofiled) the device is busy.
     Reports "not measured" where the profiler records no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scene, meta, _ = pt.builtin.reference_scene(device=device)
@@ -304,15 +349,7 @@ def profile_phase(torch, pt, device, frame_ms, frames=8):
         renderer.render_animation(frames)
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # Only the kernels themselves: a CPU op that launched a kernel reports
-    # the same device time again.
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-                  key=device_us, reverse=True)
+    rows = kernel_rows(prof)
     busy_ms = sum(device_us(e) for e in rows) / 1e3 / frames
     phase("profile", frames=frames,
           device_ms_per_frame=busy_ms if rows else "not measured",
@@ -321,6 +358,312 @@ def profile_phase(torch, pt, device, frame_ms, frames=8):
           top=[{"name": e.key[:60], "calls": e.count,
                 "ms_per_frame": device_us(e) / 1e3 / frames}
                for e in rows[:6]])
+
+
+def tent_scene(pt, device):
+    """tests/test_pallas.py:72-101: one emissive quad, one glass sphere and
+    a 4-triangle tent."""
+    import numpy as np
+
+    b = pt.SceneBuilder()
+    white = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
+    light = b.add_material("light", pt.LAMBERTIAN, [0, 0, 0],
+                           emission=[3, 3, 3])
+    glass = b.add_material("glass", pt.GLASS, [1, 1, 1], eta=1.5)
+    b.add_quad([-1, 1, -1], [2, 0, 0], [0, 0, 2], light)
+    b.add_sphere([0.5, -0.3, 0.2], 0.3, glass)
+    tent = [[-0.6, -0.5, 0.0], [0.0, -0.5, -0.6], [0.0, 0.2, -0.2],
+            [0.6, -0.5, 0.0]]
+    tris = np.asarray([[tent[0], tent[1], tent[2]],
+                       [tent[1], tent[3], tent[2]],
+                       [tent[0], tent[2], tent[3]],
+                       [tent[0], tent[3], tent[1]]], np.float32)
+    nrm = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    b.add_mesh(pt.MeshData(vertices=tris.reshape(-1, 3),
+                           normals=np.repeat(nrm, 3, axis=0)
+                           .astype(np.float32)), white)
+    scene, meta = b.build(bvh="none", device=device)
+    return scene, meta, b
+
+
+def grad_pair(torch, pt, device, scene, meta, cfg, eye, groups, with_view,
+              frame=7):
+    """Loss and parameter gradients of an L2 image loss through the
+    backward kernel and through its plain version (autograd of the
+    wavefront), from the same PCG states.  The target is the kernel's
+    image of the same scene at frame 1."""
+    from tpu_path_tracer_torch.core import rng
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.integrator.render import pixel_grid
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    check(mk.vjp_supported(scene, meta, cfg), "no differentiable route")
+    view0 = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
+                            device=device)
+    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    with torch.no_grad():
+        target = mk.path_trace_pixels_megakernel(rng.seed(pix, 1), view0, px,
+                                                 py, scene, meta, cfg)
+
+    def leaves():
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in extract_params(scene, groups).items()}
+        if with_view:
+            params["view_matrix"] = view0.clone().requires_grad_(True)
+        return params
+
+    def trace(params, fn):
+        s = apply_params(scene, params)
+        view = params.get("view_matrix", view0)
+        return fn(rng.seed(pix, frame), view, px, py, s, meta, cfg)
+
+    # The kernel route: forward and backward kernels, one launch each.
+    params = leaves()
+    before = (mk.LAUNCHES, mk.BWD_LAUNCHES)
+    rad = trace(params, mk.path_trace_pixels_megakernel)
+    loss_k = torch.mean((rad - target) ** 2)
+    got = torch.autograd.grad(loss_k, list(params.values()),
+                              allow_unused=True)
+    torch.cuda.synchronize()
+    check((mk.LAUNCHES, mk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1),
+          "the kernel route did not launch each kernel once")
+    # The plain version.
+    params = leaves()
+    rad_p = trace(params, mk.path_trace_pixels_reference).detach()
+    loss_p = torch.mean((rad_p - target) ** 2)
+    ref = mk.vjp_reference(rng.seed(pix, frame),
+                           params.get("view_matrix", view0), px, py,
+                           apply_params(scene, params), meta, cfg,
+                           2.0 * (rad_p - target) / rad_p.numel(),
+                           list(params.values()))
+    out = {}
+    for k, a, b in zip(params, ref, got):
+        a = torch.zeros_like(params[k]) if a is None else a
+        b = torch.zeros_like(params[k]) if b is None else b
+        out[k] = (a.cpu().numpy(), b.cpu().numpy())
+    return float(loss_k.detach()), float(loss_p), out
+
+
+def grad_phase(torch, pt, device):
+    """Phase 7: the backward kernel against its plain version; returns the
+    largest absolute and relative gradient errors over all cases."""
+    import numpy as np
+    from tpu_path_tracer_torch.core import rng
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.integrator.render import pixel_grid
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    B = pt.builtin
+    geometry = ("emission", "bsdf", "spheres", "quads", "vertices")
+    cases = [
+        ("cornell_nee_4", B.cornell_box, [0, 0, 3.2],
+         dict(max_bounces=4, importance_sampling=True),
+         ("emission", "bsdf", "quads"), False),
+        # Russian roulette from bounce 3 on, read by later bounces.
+        ("cornell_nee_6", B.cornell_box, [0, 0, 3.2],
+         dict(max_bounces=6, importance_sampling=True),
+         ("emission", "bsdf", "quads"), False),
+        ("reference_full", B.reference_scene, [0.5, 0.0, 2.5],
+         dict(max_bounces=4), geometry, True),
+        ("cornell_stratified_spp4", B.cornell_box, [0, 0, 3.2],
+         dict(max_bounces=3, samples_per_pixel=4, stratify=True,
+              importance_sampling=True), ("emission", "bsdf", "quads"),
+         False),
+        ("tent_vertices", lambda device: tent_scene(pt, device),
+         [0.0, 0.0, 2.5], dict(max_bounces=2, importance_sampling=True,
+                               light_sample_prob=0.9),
+         ("emission", "vertices"), False),
+        # The training path's own shapes.
+        ("cornell_train_512", B.cornell_box, [0, 0, 3.2],
+         dict(TRAIN_KW), TRAIN_GROUPS, False),
+        ("reference_512", B.reference_scene, [0.5, 0.0, 2.5],
+         dict(width=512, height=512, max_bounces=4), TRAIN_GROUPS, False),
+    ]
+    worst_abs = worst_rel = 0.0
+    for name, scene_fn, eye, kw, groups, with_view in cases:
+        cfg = pt.RenderConfig(**{"width": 64, "height": 64, **kw})
+        scene, meta, _ = scene_fn(device=device)
+        loss_k, loss_p, grads = grad_pair(torch, pt, device, scene, meta, cfg,
+                                          eye, groups, with_view)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        rows = {}
+        for k, (a, b) in grads.items():
+            check(np.isfinite(a).all() and np.isfinite(b).all(),
+                  f"{name}: non-finite gradient {k}")
+            scale = max(float(np.abs(a).max()), GRAD_ATOL)
+            err = float(np.abs(a - b).max())
+            rows[k] = {"max": float(np.abs(a).max()), "err_over_max":
+                       err / scale}
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / scale)
+        phase("grad_vs_plain", case=name, size=f"{cfg.width}x{cfg.height}",
+              max_bounces=cfg.max_bounces, loss_kernel=loss_k,
+              loss_plain=loss_p, loss_rel=loss_rel, tol=GRAD_RTOL,
+              groups=rows)
+        check(loss_rel <= GRAD_LOSS_RTOL, f"{name}: losses {loss_k} and "
+              f"{loss_p} differ beyond {GRAD_LOSS_RTOL}")
+        for k, r in rows.items():
+            check(r["err_over_max"] <= GRAD_RTOL,
+                  f"{name}: gradient {k} off by {r['err_over_max']:.3g} of "
+                  f"its largest")
+        check(any(r["max"] > 0 for r in rows.values()),
+              f"{name}: every gradient is zero")
+
+    # Over the unroll budget, asking for gradients raises on the card too.
+    scene, meta, _ = B.cornell_box(device=device)
+    cfg = pt.RenderConfig(width=8, height=8, use_megakernel=True,
+                          max_bounces=mk.MAX_UNROLL_BOUNCES + 1)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in extract_params(scene, ("emission",)).items()}
+    pix, px, py = pixel_grid(8, 8, device)
+    view = torch.as_tensor(pt.Camera(eye=[0, 0, 3.2]).view_matrix,
+                           device=device)
+    try:
+        mk.path_trace_pixels_megakernel(rng.seed(pix, 1), view, px, py,
+                                        apply_params(scene, params), meta,
+                                        cfg)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    phase("grad_vs_plain", case="unroll_budget_error", message=raised)
+    check("wavefront" in raised, "no unroll-budget error on the card")
+    return worst_abs, worst_rel
+
+
+def train_setup(torch, pt, device, use_megakernel):
+    """``cli train``'s setup at the training path's size: the target at
+    frame 1 from the true scene, emission and BSDF parameters x 0.5."""
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.dist import render_dist
+
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=use_megakernel)
+    view = pt.Camera(eye=[0, 0, 3.2], center=[0, 0, 0]).view_matrix
+    frame = render_dist.make_sharded_frame_fn(None, meta, cfg)
+    with torch.no_grad():
+        target = frame(torch.zeros((render_dist.padded_pixels(cfg), 3),
+                                   device=device), 1, True, view, scene)
+    params = {k: (v * 0.5).detach().clone().requires_grad_(True)
+              for k, v in extract_params(scene, TRAIN_GROUPS).items()}
+    optimizer = torch.optim.Adam(params.values(), lr=5e-2)
+    step = render_dist.make_train_step(None, scene, meta, cfg, apply_params,
+                                       optimizer)
+    return step, params, target, view
+
+
+def train_phase(torch, pt, device, steps=10):
+    """Phase 8, the training path: 10 steps through the kernels; the
+    launch counts are read around the steps alone."""
+    import numpy as np
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    step, params, target, view = train_setup(torch, pt, device, True)
+    torch.cuda.synchronize()
+    mk.LAUNCHES = 0
+    mk.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses = [float(step(params, target, 1, view)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"megakernel_fwd": mk.LAUNCHES,
+                "megakernel_bwd": mk.BWD_LAUNCHES}
+    phase("train", scene="cornell_box",
+          size=f"{TRAIN_KW['width']}x{TRAIN_KW['height']}",
+          max_bounces=TRAIN_KW["max_bounces"], groups=list(TRAIN_GROUPS),
+          steps=steps, losses=losses, launches=launches,
+          seconds=round(seconds, 4))
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(losses[-1] < losses[0], "the training loss did not fall")
+    check(launches == {"megakernel_fwd": steps, "megakernel_bwd": steps},
+          f"launches {launches} for {steps} steps")
+    for k, v in params.items():
+        check(bool(torch.isfinite(v).all()), f"non-finite parameter {k}")
+    return launches
+
+
+def time_train_steps(torch, pt, device, use_megakernel, warmup=2, steps=8):
+    """Per step: the whole fwd+bwd+Adam step, and its backward alone
+    (CUDA events around loss.backward())."""
+    from tpu_path_tracer_torch.diff.params import apply_params
+    from tpu_path_tracer_torch.dist import render_dist
+
+    step, params, target, view = train_setup(torch, pt, device,
+                                             use_megakernel)
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=use_megakernel)
+    loss_fn = render_dist.make_sharded_loss_fn(None, scene, meta, cfg,
+                                               apply_params)
+    step_ms, bwd_ms = [], []
+    for i in range(warmup + steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, target, 1, view)
+        end.record()
+        end.synchronize()
+        loss = loss_fn(params, target, 1, view)
+        b0 = torch.cuda.Event(enable_timing=True)
+        b1 = torch.cuda.Event(enable_timing=True)
+        b0.record()
+        loss.backward()
+        b1.record()
+        b1.synchronize()
+        if i >= warmup:
+            step_ms.append(start.elapsed_time(end))
+            bwd_ms.append(b0.elapsed_time(b1))
+    return step_ms, bwd_ms
+
+
+def train_timing_phase(torch, pt, device, smi):
+    """Phase 9: median fwd+bwd+Adam step times through the kernels and
+    through the wavefront, in turns (plain, kernel, kernel, plain), the
+    backward alone of each, and the backward kernel's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples = {"plain": ([], []), "kernel": ([], [])}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        s, b = time_train_steps(torch, pt, device, name == "kernel")
+        samples[name][0].extend(s)
+        samples[name][1].extend(b)
+    out = {}
+    for name, (s, b) in samples.items():
+        out[name] = {"step_ms": statistics.median(s),
+                     "bwd_ms": statistics.median(b)}
+        phase("train_timing", route=name, scene="cornell_box",
+              size=f"{TRAIN_KW['width']}x{TRAIN_KW['height']}", max_bounces=TRAIN_KW["max_bounces"],
+              step_ms=out[name]["step_ms"], step_ms_min=min(s),
+              step_ms_max=max(s), bwd_ms=out[name]["bwd_ms"],
+              bwd_ms_min=min(b), bwd_ms_max=max(b), steps=len(s), card=smi)
+
+    step, params, target, view = train_setup(torch, pt, device, True)
+    for _ in range(2):
+        step(params, target, 1, view)
+    torch.cuda.synchronize()
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(params, target, 1, view)
+        torch.cuda.synchronize()
+
+    rows = kernel_rows(prof)
+    bwd = [e for e in rows if "megakernel_bwd" in e.key]
+    fwd = [e for e in rows if "megakernel_fwd" in e.key]
+    busy_ms = sum(device_us(e) for e in rows) / 1e3 / steps
+    kernel_ms = {
+        "megakernel_bwd": (sum(device_us(e) for e in bwd) / 1e3 / steps
+                           if bwd else "not measured"),
+        "megakernel_fwd": (sum(device_us(e) for e in fwd) / 1e3 / steps
+                           if fwd else "not measured")}
+    phase("train_profile", steps=steps,
+          device_ms_per_step=busy_ms if rows else "not measured",
+          step_wall_ms=out["kernel"]["step_ms"],
+          kernel_device_ms_per_step=kernel_ms,
+          top=[{"name": e.key[:60], "calls": e.count,
+                "ms_per_step": device_us(e) / 1e3 / steps}
+               for e in rows[:8]])
+    return out, kernel_ms
 
 
 def run():
@@ -336,11 +679,22 @@ def run():
     launches, frame_ms = main_path_phase(torch, pt, device)
     times = timing_phase(torch, pt, device, smi)
     profile_phase(torch, pt, device, frame_ms)
-    print(json.dumps({"kernels": [{
-        "name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": times["kernel"],
-        "plain_ms": times["plain"]}]}))
+    grad_abs, grad_rel = grad_phase(torch, pt, device)
+    train_launches = train_phase(torch, pt, device)
+    train_times, kernel_ms = train_timing_phase(torch, pt, device, smi)
+    print(json.dumps({"kernels": [
+        {"name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES,
+         "launches": train_launches["megakernel_fwd"],
+         "max_abs_err": max_err, "ms": times["kernel"],
+         "plain_ms": times["plain"]},
+        {"name": "megakernel_bwd", "route": "cuda", "source": BWD_SOURCE,
+         "replaces": BWD_REPLACES,
+         "launches": train_launches["megakernel_bwd"],
+         "max_abs_err": grad_abs, "max_err_over_group_max": grad_rel,
+         "ms": train_times["kernel"]["bwd_ms"],
+         "plain_ms": train_times["plain"]["bwd_ms"],
+         "device_ms": kernel_ms["megakernel_bwd"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -169,24 +169,6 @@ def test_megakernel_route_on_cpu_is_the_wavefront():
     assert mk.LAUNCHES == before
 
 
-def test_megakernel_backward_raises():
-    """Gradients through the megakernel route are not ported yet: asking
-    for them raises instead of detouring through another path."""
-    scene, meta, _ = pt.builtin.cornell_box()
-    emission = scene.materials.emission.clone().requires_grad_(True)
-    scene = scene._replace(
-        materials=scene.materials._replace(emission=emission))
-    cfg = pt.RenderConfig(width=8, height=4, max_bounces=2,
-                          use_megakernel=True)
-    pix, px, py = pixel_grid(8, 4, "cpu")
-    view = torch.as_tensor(pt.Camera(eye=[0, 0, 3.2]).view_matrix)
-    rad = mk.path_trace_pixels_megakernel(trng.seed(pix, 1), view, px, py,
-                                          scene, meta, cfg)
-    assert rad.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 2"):
-        rad.sum().backward()
-
-
 def test_megakernel_wrapper_has_no_fallback(monkeypatch):
     """A device other than CPU or CUDA has no route, and the CUDA route
     raises when the toolkit is missing instead of falling back."""
@@ -218,7 +200,10 @@ def test_port_imports_no_jax():
     code = ("import sys, tpu_path_tracer_torch, "
             "tpu_path_tracer_torch.kernels.megakernel, "
             "tpu_path_tracer_torch.kernels._build, "
-            "tpu_path_tracer_torch.renderer; "
+            "tpu_path_tracer_torch.renderer, "
+            "tpu_path_tracer_torch.diff.params, "
+            "tpu_path_tracer_torch.dist.render_dist, "
+            "tpu_path_tracer_torch.cli, tpu_path_tracer_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_path_tracer.')) "
             "or m == 'tpu_path_tracer']; "

@@ -1,9 +1,12 @@
 """tpu_path_tracer_torch: the path tracer on PyTorch and CUDA.
 
 A port of ``tpu_path_tracer`` (JAX/Pallas for TPU) that imports no JAX.
-Plain tensor code is PyTorch; the fused forward megakernel is hand-written
-CUDA for Hopper (``csrc/megakernel_fwd.cu``).  Public API re-exports below,
-matching the JAX package for what is ported; see README.md.
+Plain tensor code is PyTorch; the fused megakernel and its backward are
+hand-written CUDA for Hopper (``csrc/megakernel_fwd.cu``,
+``csrc/megakernel_bwd.cu``).  Training: ``diff.params``,
+``dist.render_dist.make_train_step`` and ``python -m tpu_path_tracer_torch
+train``.  Public API re-exports below, matching the JAX package for what
+is ported; see README.md.
 """
 
 from .core.camera import Camera

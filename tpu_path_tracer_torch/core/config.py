@@ -51,8 +51,10 @@ class RenderConfig:
     # (kernels/megakernel.py) when the scene supports it.  On CPU tensors
     # that route runs the kernel's plain version, the wavefront.
     use_megakernel: bool = False
-    # Accepted for parity with the JAX package; the port has no backward
-    # pass yet, so there is nothing to rematerialize.
+    # Wavefront gradients: replay each bounce in the backward pass
+    # (torch.utils.checkpoint) instead of saving its intermediates; only the
+    # state between bounces and the hit-search results are kept
+    # (integrator/path_tracer.py).
     remat_bounces: bool = True
 
     def replace(self, **kw) -> "RenderConfig":

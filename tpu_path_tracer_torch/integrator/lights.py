@@ -54,5 +54,10 @@ def quad_light_pdf(origin, direction, q, u, v):
     dist_sq = t * t * vm.dot(direction, direction)
     cosine = torch.abs(denom) / torch.clamp(vm.length(direction), min=1e-12)
     area = vm.length(n_raw)
+    # Zero the numerator of invalid lanes before dividing: a lane whose
+    # path has ended sits a miss distance (1e9) away, where dist_sq reaches
+    # 1e27 and the division's backward overflows to inf, and 0 * inf would
+    # put NaN into the quad gradients through the where below.
+    dist_sq = torch.where(valid, dist_sq, 0.0)
     pdf = dist_sq / torch.clamp(cosine * area, min=1e-12)
     return torch.where(valid, pdf, MIN_FLOAT)

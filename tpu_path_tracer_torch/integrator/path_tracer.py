@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import rng
 from ..core.config import RenderConfig
@@ -35,24 +36,33 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
     """Estimate radiance along each ray; returns ``(rand_state,
     radiance [N, 3])``.
 
-    ``cfg.remat_bounces`` is accepted and ignored: the port has no
-    backward pass yet (ROADMAP Queue 2 item 2), so nothing is saved for
-    one."""
+    Differentiable with respect to the scene tensors and the ray: the hit
+    search (``find_hit``) is detached, and gradients flow through the
+    re-shaded hit, the BSDF, the NEE pdf chain and the Russian-roulette
+    compensation.  With ``cfg.remat_bounces`` and grad mode on, the
+    differentiable part of each bounce runs under
+    ``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``
+    with its ``save_only_these_names`` policy
+    (``path_tracer.py:51-59,123-137``): the backward pass keeps only the
+    state between bounces and the three hit-search results (``ptype``,
+    ``pidx``, ``vol_u``), and replays the rest of the bounce from them, so
+    the replay never repeats the hit search.  The PCG state goes in and
+    out of the replayed part explicitly, so the replay draws the same
+    numbers."""
+    device = ray.origin.device
     background = torch.as_tensor(np.asarray(cfg.background, np.float32),
-                                 device=ray.origin.device)
+                                 device=device)
     n = ray.origin.shape[0]
-    cur_ray = ray
-    radiance = torch.zeros((n, 3), dtype=torch.float32,
-                           device=ray.origin.device)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
     throughput = torch.ones_like(radiance)
-    alive = torch.ones((n,), dtype=torch.bool, device=ray.origin.device)
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
     use_nee = cfg.importance_sampling and meta.has_light
     if use_nee:
         lq, lu, lv = (x[None] for x in lights.light_quad(scene))
 
-    for bounce_idx in range(cfg.max_bounces):
-        rand_state, ptype, pidx, vol_u = find_hit(
-            rand_state, cur_ray, scene, meta, cfg, alive=alive)
+    def shade_and_scatter(rand_state, origin, direction, radiance,
+                          throughput, alive, ptype, pidx, vol_u, bounce_idx):
+        cur_ray = Ray(origin=origin, dir=direction)
         rec = shade_hit(cur_ray, ptype, pidx, vol_u, scene, cfg)
 
         # Miss: background * throughput, lane retires (traceRay.wgsl:12-16).
@@ -67,7 +77,7 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
         radiance = radiance + torch.where(
             live[:, None], emission * throughput, 0.0)
 
-        rand_state, srec = material_scatter(rand_state, cur_ray.dir, rec,
+        rand_state, srec = material_scatter(rand_state, direction, rec,
                                             scene.materials)
 
         if use_nee:
@@ -95,9 +105,8 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
             new_thr = throughput * srec.attenuation
 
         throughput = torch.where(live[:, None], new_thr, throughput)
-        cur_ray = Ray(
-            origin=torch.where(live[:, None], rec.p, cur_ray.origin),
-            dir=torch.where(live[:, None], new_dir, cur_ray.dir))
+        origin = torch.where(live[:, None], rec.p, origin)
+        direction = torch.where(live[:, None], new_dir, direction)
         alive = live
 
         # Russian roulette from bounce rr_start_bounce on
@@ -111,5 +120,21 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
                 alive[:, None],
                 throughput / torch.clamp(p_survive, min=1e-12)[:, None],
                 throughput)
+        return rand_state, origin, direction, radiance, throughput, alive
+
+    remat = cfg.remat_bounces and torch.is_grad_enabled()
+    origin, direction = ray.origin, ray.dir
+    for bounce_idx in range(cfg.max_bounces):
+        rand_state, ptype, pidx, vol_u = find_hit(
+            rand_state, Ray(origin=origin, dir=direction), scene, meta, cfg,
+            alive=alive)
+        state = (rand_state, origin, direction, radiance, throughput, alive,
+                 ptype, pidx, vol_u, bounce_idx)
+        if remat:
+            state = checkpoint(shade_and_scatter, *state,
+                               use_reentrant=False, preserve_rng_state=False)
+        else:
+            state = shade_and_scatter(*state)
+        rand_state, origin, direction, radiance, throughput, alive = state
 
     return rand_state, radiance

@@ -61,8 +61,9 @@ def path_trace_pixels(rand_state, view_matrix, px, py, scene: SceneData,
     pixel.  Returns (rand_state, radiance [N, 3]).
 
     With ``cfg.use_megakernel`` set and a scene the kernel supports, the
-    whole trace is one launch of the CUDA megakernel
-    (``kernels.megakernel``; on CPU tensors its plain version).  That route
+    whole trace is one launch of the CUDA megakernel, and its gradient one
+    launch of the backward kernel (``kernels.megakernel``; on CPU tensors
+    their plain version, this wavefront under autograd).  That route
     returns the caller's ``rand_state`` unchanged, as in the JAX package:
     callers reseed every frame from (pixel, frame)."""
     from ..kernels import megakernel as mk

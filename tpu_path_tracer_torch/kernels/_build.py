@@ -4,8 +4,8 @@ The library has a plain C interface and is loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds.  It is built at first
 use from the ``.cu`` files under ``tpu_path_tracer_torch/csrc/`` into
 ``tpu_path_tracer_torch/_build/``, under a name keyed by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-not.
+sources, the headers they include (``.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is not.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no a*b+c contraction, matching the references' rounding
-# (see the note at the top of csrc/megakernel_fwd.cu).  -Xptxas -v reports
+# (see the note at the top of csrc/tracer.cuh).  -Xptxas -v reports
 # registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
@@ -44,8 +44,9 @@ def build() -> Path:
     """Compile the sources if this exact build is missing; returns the
     library's path.  A failed build raises with nvcc's output."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libtpt_kernels_{digest.hexdigest()[:16]}.so"

@@ -1,17 +1,27 @@
-"""Fused path-tracing megakernel: the whole trace of a frame in one launch.
+"""Fused path-tracing megakernel: the whole trace of a frame in one launch,
+and its gradient in a second.
 
-Port of ``tpu_path_tracer/kernels/pallas/megakernel.py``, forward only.
-The kernel is CUDA C++ (``csrc/megakernel_fwd.cu``, built by
-``kernels._build``): one thread per pixel runs camera ray generation, the
+Port of ``tpu_path_tracer/kernels/pallas/megakernel.py``.  Both kernels are
+CUDA C++ built by ``kernels._build`` and share one tracer body
+(``csrc/tracer.cuh``): one thread per pixel runs camera ray generation, the
 sample and bounce loops, the hit search over the packed scene tables,
-shading and Russian roulette, so ray state never leaves registers.  Its
-contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw the
-same PCG stream and bounce algebra as the wavefront integrator, which is
-therefore its plain version here (:func:`path_trace_pixels_reference`).
+shading and Russian roulette, so ray state never leaves registers.
 
-Routing, with no fallback: a CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.  Gradients are not ported yet: the
-autograd node raises in ``backward`` (ROADMAP Queue 2 item 2).
+* forward (``csrc/megakernel_fwd.cu``, the JAX ``_fwd_call``): radiance
+  ``[N, 3]``;
+* backward (``csrc/megakernel_bwd.cu``, the JAX ``_bwd_call``): a
+  hand-written adjoint that replays the same PCG stream and returns the
+  gradients of the five packed tables; ``pack_tables``' torch ops carry
+  them to the scene tensors, as the JAX custom VJP ``_megakernel`` does.
+
+Their contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw
+the same PCG stream and bounce algebra as the wavefront integrator, which
+is therefore the plain version of both (:func:`path_trace_pixels_reference`
+and :func:`vjp_reference`).
+
+Routing, with no fallback: a CPU tensor takes the plain version (the
+wavefront, differentiable by autograd); a CUDA tensor launches the kernels
+or raises, and a backward that cannot launch raises too.
 """
 
 from __future__ import annotations
@@ -40,10 +50,19 @@ MAX_MEGAKERNEL_TRIS = 64
 # Dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 
-# Launches of the CUDA kernel in this process.
-LAUNCHES = 0
+# Bounce x sample budget of the differentiable route (megakernel.py:79-82).
+# The JAX backward unrolls max_bounces * spp bounce bodies; the CUDA adjoint
+# keeps one record per bounce in scratch and has no such limit, but keeps
+# the JAX routing until lifting it is measured (ROADMAP).
+MAX_UNROLL_BOUNCES = 64
 
-_BACKWARD_MISSING = "megakernel backward: ROADMAP Queue 2 item 2"
+# Launches of the CUDA kernels in this process: the forward and the
+# backward.
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+# Words per bounce record of the backward's scratch (csrc/megakernel_bwd.cu).
+REC_FIELDS = 14
 
 
 def _mat_cols(materials, mid):
@@ -101,11 +120,21 @@ def supported(scene: SceneData, meta: SceneMeta, cfg: RenderConfig) -> bool:
                  + scene.triangles.count) > 0)
 
 
+def vjp_supported(scene: SceneData, meta: SceneMeta,
+                  cfg: RenderConfig) -> bool:
+    """Whether the differentiable megakernel route applies: the JAX
+    backward kernel unrolls ``max_bounces * spp`` bounce bodies, so deep
+    configurations keep the wavefront (megakernel.py:756-762)."""
+    return (supported(scene, meta, cfg)
+            and cfg.max_bounces * resolved_spp(cfg) <= MAX_UNROLL_BOUNCES)
+
+
 def path_trace_pixels_reference(rand_state, view_matrix, px, py,
                                  scene: SceneData, meta: SceneMeta,
                                  cfg: RenderConfig):
-    """The kernel's plain version: the port's wavefront
-    ``integrator.render.path_trace_pixels``.  Returns radiance ``[N, 3]``."""
+    """The forward kernel's plain version: the port's wavefront
+    ``integrator.render.path_trace_pixels``.  Returns radiance ``[N, 3]``,
+    differentiable by autograd."""
     from ..integrator.render import path_trace_pixels
 
     _, radiance = path_trace_pixels(rand_state, view_matrix, px, py, scene,
@@ -113,80 +142,167 @@ def path_trace_pixels_reference(rand_state, view_matrix, px, py,
     return radiance
 
 
-def _bind(lib):
-    fn = lib.tpt_megakernel_fwd
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p, i, i, i, p, p, p, p, i]
-                       + [i] * 6 + [f] * 13 + [p])
-        fn.restype = ctypes.c_int
-    return fn
+def vjp_reference(rand_state, view_matrix, px, py, scene: SceneData,
+                  meta: SceneMeta, cfg: RenderConfig, grad_radiance,
+                  inputs):
+    """The backward kernel's plain version, for tests and
+    ``chip_smoke.py``: autograd of the wavefront.  Returns the gradients of
+    ``sum(radiance * grad_radiance)`` with respect to ``inputs`` (tensors
+    the scene or ``view_matrix`` were built from, e.g. the parameters
+    given to ``diff.params.apply_params``); None where one gets none."""
+    radiance = path_trace_pixels_reference(rand_state, view_matrix, px, py,
+                                           scene, meta, cfg)
+    return torch.autograd.grad(radiance, list(inputs), grad_radiance,
+                               allow_unused=True)
 
 
-def _launch(rand_state, px, py, tables, scene: SceneData, meta: SceneMeta,
-            cfg: RenderConfig):
-    """Launch the CUDA kernel on the current stream; returns ``[N, 3]``."""
-    global LAUNCHES
-    from . import _build
+def _wants_grad(scene: SceneData, view_matrix) -> bool:
+    """Whether autograd records a graph through this render."""
+    if not torch.is_grad_enabled():
+        return False
+    groups = (scene.materials, scene.spheres, scene.quads, scene.triangles)
+    return view_matrix.requires_grad or any(
+        t.requires_grad for g in groups for t in g
+        if isinstance(t, torch.Tensor))
 
-    device = px.device
-    n = px.shape[0]
-    counts = (scene.spheres.count, scene.quads.count, scene.triangles.count)
-    flat = torch.cat([t.detach().reshape(-1) for t in tables])
-    flat = flat.to(device=device, dtype=torch.float32).contiguous()
-    if flat.numel() * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"megakernel scene tables take {flat.numel() * 4} "
-                         f"bytes of shared memory, above the "
-                         f"{MAX_SMEM_BYTES} a block may use")
-    for name, t in (("rand_state", rand_state), ("px", px), ("py", py)):
-        if t.device != device or t.shape != (n,):
-            raise ValueError(f"{name} must be [{n}] on {device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-    # The uint32 states as int32 bit patterns.
-    state = rand_state.to(torch.int64) & 0xFFFFFFFF
-    state = torch.where(state >= 2 ** 31, state - 2 ** 32, state)
-    state = state.to(torch.int32).contiguous()
-    px32 = px.to(torch.int32).contiguous()
-    py32 = py.to(torch.int32).contiguous()
-    out = torch.empty((n, 3), dtype=torch.float32, device=device)
 
+def _check_unroll_budget(cfg: RenderConfig):
+    spp = resolved_spp(cfg)
+    if cfg.max_bounces * spp > MAX_UNROLL_BOUNCES:
+        raise NotImplementedError(
+            f"megakernel backward unrolls max_bounces*spp = "
+            f"{cfg.max_bounces * spp} bounce bodies (budget "
+            f"{MAX_UNROLL_BOUNCES}); use the wavefront integrator "
+            f"(use_megakernel=False) for deep-bounce training")
+
+
+def _int32(x):
+    """The uint32 values of an int64 tensor as int32 bit patterns."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+    return x.to(torch.int32).contiguous()
+
+
+def _scalar_args(scene: SceneData, meta: SceneMeta, cfg: RenderConfig,
+                 n: int):
+    """The launch arguments after the buffers, as both C entry points
+    take them: n, spp, max_bounces, grid_n, use_nee, has_volumes,
+    rr_start_bounce, then the float parameters."""
     spp = resolved_spp(cfg)
     grid_n = max(int(cfg.samples_per_pixel ** 0.5), 1) if cfg.stratify else 0
     w, h = np.float32(cfg.width), np.float32(cfg.height)
     fov_factor = np.float32(
         1.0 / math.tan(cfg.fov_degrees * (PI / 180.0) / 2.0))
     bg = [float(x) for x in np.asarray(cfg.background, np.float32)]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    return (n, spp, cfg.max_bounces, grid_n,
+            int(cfg.importance_sampling and meta.has_light),
+            int(meta.has_volumes), cfg.rr_start_bounce,
+            float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max)),
+            float(np.float32(cfg.t_max * 1.01)),
+            float(np.float32(cfg.light_sample_prob)), *bg,
+            float(w / h), float(fov_factor), float(w), float(h),
+            float(np.float32(1.0 / max(grid_n, 1))),
+            float(np.float32(1.0 / spp)))
 
-    fn = _bind(_build.load())
-    err = fn(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
-             py32.data_ptr(), out.data_ptr(), n,
-             spp, cfg.max_bounces, grid_n,
-             int(cfg.importance_sampling and meta.has_light),
-             int(meta.has_volumes), cfg.rr_start_bounce,
-             float(np.float32(cfg.t_min)), float(np.float32(cfg.t_max)),
-             float(np.float32(cfg.t_max * 1.01)),
-             float(np.float32(cfg.light_sample_prob)), *bg,
-             float(w / h), float(fov_factor), float(w), float(h),
-             float(np.float32(1.0 / max(grid_n, 1))),
-             float(np.float32(1.0 / spp)), stream)
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scalars = [i] * 7 + [f] * 13
+    fwd, bwd = lib.tpt_megakernel_fwd, lib.tpt_megakernel_bwd
+    if fwd.argtypes is None:
+        fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p]
+        fwd.restype = ctypes.c_int
+        bwd.argtypes = [p, i, i, i, p, p, p, p, p, p] + scalars + [p]
+        bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _prepare(rand_state, px, py, tables, scene: SceneData):
+    """Device buffers both kernels read: the flat tables and the int32
+    state and pixel coordinates."""
+    device = px.device
+    n = px.shape[0]
+    flat = torch.cat([t.detach().reshape(-1) for t in tables])
+    flat = flat.to(device=device, dtype=torch.float32).contiguous()
+    if flat.numel() * 4 > MAX_SMEM_BYTES // 2:
+        raise ValueError(f"megakernel scene tables take {flat.numel() * 4} "
+                         f"bytes of shared memory; the backward holds them "
+                         f"and their gradients, at most {MAX_SMEM_BYTES} "
+                         f"bytes a block may use")
+    for name, t in (("rand_state", rand_state), ("px", px), ("py", py)):
+        if t.device != device or t.shape != (n,):
+            raise ValueError(f"{name} must be [{n}] on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    counts = (scene.spheres.count, scene.quads.count, scene.triangles.count)
+    return flat, counts, _int32(rand_state), _int32(px), _int32(py)
+
+
+def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
+    """Launch the forward kernel on the current stream; returns
+    ``[N, 3]``."""
+    global LAUNCHES
+    from . import _build
+
+    n = px32.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
+    stream = torch.cuda.current_stream(px32.device).cuda_stream
+    fwd, _ = _bind(_build.load())
+    err = fwd(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
+              py32.data_ptr(), out.data_ptr(),
+              *_scalar_args(scene, meta, cfg, n), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
 
 
+def _launch_bwd(flat, counts, state, px32, py32, grad_out, scene, meta,
+                cfg):
+    """Launch the backward kernel on the current stream; returns the
+    gradient of ``sum(radiance * grad_out)`` for the flat tables."""
+    global BWD_LAUNCHES
+    from . import _build
+
+    n = px32.shape[0]
+    device = px32.device
+    grad_out = grad_out.to(device=device, dtype=torch.float32).contiguous()
+    if grad_out.shape != (n, 3):
+        raise ValueError(f"radiance cotangent must be [{n}, 3], got "
+                         f"{tuple(grad_out.shape)}")
+    grad = torch.zeros_like(flat)
+    rec = torch.empty((max(cfg.max_bounces, 1) * REC_FIELDS * n,),
+                      dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _, bwd = _bind(_build.load())
+    err = bwd(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
+              py32.data_ptr(), grad_out.data_ptr(), rec.data_ptr(),
+              grad.data_ptr(), *_scalar_args(scene, meta, cfg, n), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel backward launch failed: CUDA error "
+                           f"{err}")
+    BWD_LAUNCHES += 1
+    return grad
+
+
 class _Megakernel(torch.autograd.Function):
-    """Autograd node over the packed tables: forward runs ``run`` (the
-    kernel, or its plain version on CPU); backward is not ported yet."""
+    """Autograd node over the packed tables (the JAX custom VJP
+    ``_megakernel``): forward launches the forward kernel, backward the
+    adjoint kernel, which returns one gradient per table."""
 
     @staticmethod
-    def forward(ctx, run, *tables):
-        return run()
+    def forward(ctx, launch, *tables):
+        ctx.launch = launch
+        return launch["fwd"]()
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(_BACKWARD_MISSING)
+        flat_grad = ctx.launch["bwd"](grad)
+        grads, k = [], 0
+        for shape in ctx.launch["shapes"]:
+            size = math.prod(shape)
+            grads.append(flat_grad[k:k + size].reshape(shape))
+            k += size
+        return (None, *grads)
 
 
 def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
@@ -195,17 +311,26 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
     """Radiance ``[N, 3]`` of pixels (px, py) from PCG states
     ``rand_state`` (int64 in ``[0, 2**32)``), through the megakernel.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Asking for gradients raises in backward."""
-    tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
+    CPU tensors run the plain version, the wavefront, which autograd
+    differentiates; CUDA tensors launch the forward kernel, and the
+    backward kernel when gradients are taken, or raise.  Asking for
+    gradients of a configuration over the unroll budget raises on both."""
+    if _wants_grad(scene, view_matrix):
+        _check_unroll_budget(cfg)
     device = px.device
     if device.type == "cpu":
-        def run():
-            return path_trace_pixels_reference(rand_state, view_matrix, px,
-                                               py, scene, meta, cfg)
-    elif device.type == "cuda":
-        def run():
-            return _launch(rand_state, px, py, tables, scene, meta, cfg)
-    else:
+        return path_trace_pixels_reference(rand_state, view_matrix, px, py,
+                                           scene, meta, cfg)
+    if device.type != "cuda":
         raise ValueError(f"megakernel: no route for device {device}")
-    return _Megakernel.apply(run, *tables)
+    tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
+    flat, counts, state, px32, py32 = _prepare(rand_state, px, py, tables,
+                                               scene)
+    launch = {
+        "fwd": lambda: _launch_fwd(flat, counts, state, px32, py32, scene,
+                                   meta, cfg),
+        "bwd": lambda g: _launch_bwd(flat, counts, state, px32, py32, g,
+                                     scene, meta, cfg),
+        "shapes": [tuple(t.shape) for t in tables],
+    }
+    return _Megakernel.apply(launch, *tables)
