@@ -33,7 +33,28 @@ Phases, each printed on its own line; any failure exits non-zero:
    counts of both kernels;
 9. train timing: fwd+bwd+Adam step times through the kernels and through
    the wavefront, in turns, the backward alone of each, and the backward
-   kernel's device time from torch.profiler.
+   kernel's device time from torch.profiler;
+10. traversal_vs_plain: the CUDA traversal kernel against its plain
+    version (the skip-link walk) on the card, from the same 65,536 rays,
+    at 81,920 and 327,680 triangles (median BVH), with the walk's node
+    visits and triangle tests, the kernel's and the packing's device time
+    and the walk's time;
+11. mesh_main_path: the mesh path, ``Renderer.render_animation(8)`` of
+    bench.py's 81,920-triangle mirror icosphere at 512x512 (4 bounces,
+    NEE) with the traversal kernel's launch count, then one frame through
+    the kernel and through the plain walk from the same PCG states;
+12. mesh_timing: frame times through the kernel and the plain walk at
+    512x512, through the kernel at 1024x1024 with 327,680 triangles, and
+    a torch.profiler breakdown of a mesh frame;
+13. mesh_train: 3 steps of ``make_train_step`` on the mesh scene at
+    512x512 over emission and vertices (the BVH refit runs every step);
+14. mesh_cli: ``python -m tpu_path_tracer_torch render`` of an OBJ written
+    by ``save_obj``, through a median BVH, on the card.
+
+Bounds: each kernel's least time on the card, the larger of its FP32
+operations over the card's FP32 peak and its bytes (inputs read once,
+outputs written once) over the memory rate, counted from this run's inputs
+and what the paths actually did.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,6 +62,7 @@ line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -54,6 +76,9 @@ KERNEL_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_fwd.cu"
 KERNEL_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:765"
 BWD_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_bwd.cu"
 BWD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:804"
+TRAV_SOURCE = "tpu_path_tracer_torch/csrc/traversal.cu"
+TRAV_REPLACES = ("tpu_path_tracer/kernels/pallas/traversal.py:752, "
+                 "tpu_path_tracer/kernels/pallas/traversal.py:865")
 
 # Phase 3: per-pixel tolerance of the JAX package's own kernel parity tests
 # (tests/test_pallas.py:52).  The kernel and the wavefront evaluate sinf,
@@ -92,10 +117,90 @@ GRAD_LOSS_RTOL = 1e-5
 TRAIN_KW = dict(width=512, height=512, max_bounces=4,
                 importance_sampling=True)
 TRAIN_GROUPS = ("emission", "bsdf")
+# The mesh path (phases 10-14): bench.py:301's mesh_bvh workload, an
+# icosphere of 20 * 4**6 = 81,920 triangles behind a median BVH, and
+# bench.py:568's 327,680 (subdivision 7) for the larger table.
+MESH_SUBDIVISIONS = (6, 7)
+MESH_KW = dict(width=512, height=512, max_bounces=4, importance_sampling=True)
+MESH_EYE = [0.0, 0.0, 3.2]
+MESH_GROUPS = ("emission", "vertices")   # bench.py:177
+TRAV_RAYS = 65536
+# Traversal contract (tests/test_pallas.py:284-289): the same hit mask and
+# triangle index on every lane, t within 1e-5.
+TRAV_T_TOL = 1e-5
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
+# outside the tensor cores and HBM bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# FP32 operations per test, counted by hand in csrc/tracer.cuh and
+# csrc/traversal.cu, each add, multiply, division, square root, min, max
+# and compare one operation; integer work (the PCG stream, indexing) is not
+# counted, so the bounds are lower bounds.
+SLAB_FLOPS = 31      # slab_hit: 12 for t0/t1, 6 NaN checks, 13 min/max/cmp
+MT_FLOPS = 64        # triangle_mt and the running-best compare
+SPHERE_FLOPS = 38    # sphere_roots, root choice, running-best compare
+QUAD_FLOPS = 60      # the one-sided quad test
+VOLUME_FLOPS = 51    # a volume sphere's free flight (roots, log, clip)
+SHADE_FLOPS = 200    # hit point, normal, BSDF sample, roulette (about)
+NEE_FLOPS = 120      # light sample, light and lambertian pdfs, MIS (about)
+# The backward kernel replays each bounce's forward and runs its adjoint,
+# counted as twice the forward's operations.
+BWD_FLOPS_FACTOR = 3
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def traversal_rays(n, seed, radius, vertices, width=512, eye_z=3.2):
+    """The traversal rays for an icosphere of ``radius`` at the origin, as
+    float32 numpy arrays (origin [n, 3], direction [n, 3], t_best0 [n]):
+
+    * a third: primary rays of the ``width`` x ``width`` camera at (0, 0,
+      eye_z) (60 degree field of view, pixel centres), at random pixels;
+    * a third: bounce-like rays leaving the surface (origins at 0.999-1.01
+      of the radius) towards random points of the sphere;
+    * the rest: scattered origins in [-2, 2]^3;
+    * every third lane retired: t_best0 = -INF, as kernels/hit.py seeds it;
+    * the last 16 lanes: on the plane axis = v[axis] through a vertex v of
+      the mesh (``vertices``), with a +0 or -0 direction component on that
+      axis, towards a point near v; the slab test of a box bounded at
+      v[axis] computes 0 * inf = NaN.
+    """
+    import numpy as np
+
+    from tpu_path_tracer_torch.kernels.intersect import INF
+
+    k = np.random.default_rng(seed)
+    third = n // 3
+    origin = np.zeros((n, 3))
+    d = np.zeros((n, 3))
+    pix = k.integers(0, width * width, third)
+    s = 2.0 * ((pix % width + 0.5) / width) - 1.0
+    t = -(2.0 * ((pix // width + 0.5) / width) - 1.0)
+    d[:third] = np.stack([s, t, np.full(third, -np.sqrt(3.0))], axis=1)
+    origin[:third] = [0.0, 0.0, eye_z]
+    surf = k.normal(size=(n, 3))
+    surf /= np.linalg.norm(surf, axis=1, keepdims=True)
+    origin[third:2 * third] = (surf[third:2 * third] * radius
+                               * k.uniform(0.999, 1.01, (third, 1)))
+    origin[2 * third:] = k.uniform(-2, 2, (n - 2 * third, 3))
+    target = k.uniform(-1, 1, (n, 3)) * radius
+    d[third:] = target[third:] - origin[third:]
+    for j in range(16):
+        lane, axis = n - 16 + j, j % 3
+        v = np.asarray(vertices[k.integers(len(vertices))], np.float64)
+        centre = np.zeros(3)
+        centre[axis] = v[axis]
+        origin[lane] = centre
+        origin[lane, (axis + 1) % 3] = 2.0 * radius
+        d[lane] = v + 0.2 * (centre - v) - origin[lane]
+        d[lane, axis] = -0.0 if j % 2 else 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t0 = np.where(np.arange(n) % 3 == 0, -INF, 1e9)
+    t0[n - 16:] = 1e9
+    return (origin.astype(np.float32), d.astype(np.float32),
+            t0.astype(np.float32))
 
 
 def check(cond, msg):
@@ -135,8 +240,9 @@ def build_phase():
     seconds = time.perf_counter() - t0
     log = path.with_suffix(".log").read_text().splitlines()
     phase("build", seconds=round(seconds, 3), library=os.path.relpath(
-        path, REPO), ptxas=[ln.strip() for ln in log if "Used" in ln
-                            or "spill" in ln])
+        path, REPO), ptxas=[ln.strip()[-90:] for ln in log
+                            if "Used" in ln or "spill" in ln
+                            or "entry function" in ln])
 
 
 def kernel_vs_plain(torch, pt, device, scene_fn, eye, cfg, frame=3):
@@ -666,6 +772,421 @@ def train_timing_phase(torch, pt, device, smi):
     return out, kernel_ms
 
 
+def bound(flops, nbytes):
+    """The least time (ms) of the work on the card and what bounds it."""
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+@contextlib.contextmanager
+def counted_bounces(counts):
+    """Count the live lanes of every bounce of the wavefront (its hit
+    search is told which lanes are alive): the bounces the paths took."""
+    from tpu_path_tracer_torch.integrator import path_tracer
+
+    find = path_tracer.find_hit
+
+    def counted(rand_state, ray, scene, meta, cfg, alive=None):
+        counts.append(ray.origin.shape[0] if alive is None
+                      else int(alive.sum()))
+        return find(rand_state, ray, scene, meta, cfg, alive=alive)
+
+    path_tracer.find_hit = counted
+    try:
+        yield
+    finally:
+        path_tracer.find_hit = find
+
+
+def megakernel_bound(torch, pt, device, scene, meta, cfg, eye, backward):
+    """Bound of one megakernel launch (``backward``: of the backward) on
+    these inputs: the FP32 operations of the bounces the paths took, from
+    the plain wavefront at frame 1, and the bytes of the state, pixels,
+    tables and radiance (for the backward also the cotangent in and the
+    table gradients out)."""
+    from tpu_path_tracer_torch.core import rng
+    from tpu_path_tracer_torch.core.config import ISOTROPIC
+    from tpu_path_tracer_torch.integrator.render import pixel_grid
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    counts = []
+    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    view = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
+                           device=device)
+    with torch.no_grad(), counted_bounces(counts):
+        mk.path_trace_pixels_reference(rng.seed(pix, 1), view, px, py,
+                                       scene, meta, cfg)
+    n_sph = scene.spheres.count
+    n_vol = (int((scene.materials.mtype[scene.spheres.material_id]
+                  == ISOTROPIC).sum()) if meta.has_volumes else 0)
+    per_bounce = ((n_sph - n_vol) * SPHERE_FLOPS
+                  + scene.quads.count * QUAD_FLOPS
+                  + scene.triangles.count * MT_FLOPS
+                  + (n_sph * VOLUME_FLOPS if meta.has_volumes else 0)
+                  + SHADE_FLOPS
+                  + (NEE_FLOPS if cfg.importance_sampling and meta.has_light
+                     else 0))
+    flops = sum(counts) * per_bounce
+    table_bytes = 4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
+    nbytes = px.shape[0] * (3 * 4 + 3 * 4) + table_bytes
+    if backward:
+        flops *= BWD_FLOPS_FACTOR
+        nbytes += px.shape[0] * 3 * 4 + table_bytes
+    ms, by = bound(flops, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "lane_bounces": sum(counts),
+            "flops": flops, "bytes": nbytes}
+
+
+def mesh_scene(pt, device, subdivisions, timings=None):
+    """bench.py:301's mesh scene: white back and front walls, the emissive
+    quad and a mirror icosphere of radius 0.8, median BVH."""
+    b = pt.SceneBuilder()
+    b.add_material("default", pt.LAMBERTIAN, [1, 0, 0])
+    white = b.add_material("white", pt.LAMBERTIAN, [0.73, 0.73, 0.73])
+    light = b.add_material("light", pt.LAMBERTIAN, [0, 0, 0],
+                           emission=[2, 2, 2])
+    mirror = b.add_material("mirror", pt.MIRROR, [0.9, 0.9, 0.9])
+    b.add_quad([-2, -2, -2], [4, 0, 0], [0, 4, 0], white)
+    b.add_quad([-2, 2, -2], [4, 0, 0], [0, 0, 4], light)
+    b.add_quad([-2, -2, 2], [4, 0, 0], [0, 0, -4], white)
+    b.add_mesh(pt.procedural.icosphere(subdivisions=subdivisions,
+                                       radius=0.8), mirror)
+    return b.build(bvh="median", timings=timings, device=device)
+
+
+def traversal_bound(n_rays, n_nodes, n_tris, stats):
+    """FP32 operations of the walk this bundle took (counted on the plain
+    walk) and the bytes of rays in, results out, and the node and triangle
+    tables read once."""
+    flops = (stats["node_visits"] * SLAB_FLOPS + stats["tri_tests"] * MT_FLOPS
+             + 3 * n_rays)
+    nbytes = n_rays * (7 * 4 + 2 * 4) + n_nodes * 36 + n_tris * 36
+    ms, by = bound(flops, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "flops": flops, "bytes": nbytes}
+
+
+def profile_device_ms(torch, fn, calls, names):
+    """Device ms per call of ``fn`` by kernel-name group (torch.profiler):
+    ``names`` maps a group to substrings of kernel names; "all" sums every
+    kernel.  "not measured" where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    if not rows:
+        return {k: "not measured" for k in list(names) + ["all"]}, []
+    out = {k: sum(device_us(e) for e in rows
+                  if any(s in e.key for s in subs)) / 1e3 / calls
+           for k, subs in names.items()}
+    out["all"] = sum(device_us(e) for e in rows) / 1e3 / calls
+    return out, rows
+
+
+def time_events(torch, fn, calls):
+    """ms per call of ``fn`` by CUDA events, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def traversal_phase(torch, pt, device, smi):
+    """Phase 10: the traversal kernel against the plain walk on the card,
+    from the same rays, at both mesh sizes.  Returns the 81,920-triangle
+    case's numbers for the kernels line."""
+    import numpy as np
+    from tpu_path_tracer_torch.accel import native
+    from tpu_path_tracer_torch.kernels import traversal
+
+    t_min = pt.RenderConfig().t_min
+    out = {}
+    for sub in MESH_SUBDIVISIONS:
+        timings = {}
+        scene, meta = mesh_scene(pt, device, sub, timings)
+        bvh, tris = scene.bvh, scene.triangles
+        o, d, t0 = (torch.from_numpy(x).to(device) for x in traversal_rays(
+            TRAV_RAYS, sub, 0.8, tris.a.cpu().numpy()))
+        t_k, i_k = traversal.closest_hit(o, d, bvh, tris, t_min, t0)
+        torch.cuda.synchronize()
+        stats = {}
+        start = time.perf_counter()
+        t_p, i_p = traversal.bvh_closest_hit(o, d, bvh, tris, t_min, t0,
+                                             meta.max_leaf, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - start) * 1e3
+        t_k, i_k, t_p, i_p = (x.cpu().numpy() for x in (t_k, i_k, t_p, i_p))
+        dead = t0.cpu().numpy() < 0
+        hit = i_p >= 0
+        err = float(np.abs(t_k[hit] - t_p[hit]).max()) if hit.any() else 0.0
+
+        def call():
+            traversal.closest_hit(o, d, bvh, tris, t_min, t0)
+
+        call_ms = time_events(torch, call, 20)
+        pack_ms = time_events(
+            torch, lambda: traversal.pack_bvh(bvh, tris), 20)
+        dev_ms, _ = profile_device_ms(torch, call, 10,
+                                      {"kernel": ["bvh_closest_hit"]})
+        b = traversal_bound(TRAV_RAYS, bvh.count, tris.count, stats)
+        row = {"tris": tris.count, "nodes": bvh.count,
+               "builder": "native" if native.available() else "numpy",
+               "bvh_build_s": timings["bvh_build_s"],
+               "same_index": float((i_k == i_p).mean()),
+               "same_hit_mask": bool(((i_k >= 0) == hit).all()),
+               "max_abs_err": err, "t_bit_equal": bool((t_k == t_p).all()),
+               "retired_all_miss": bool((i_k[dead] == -1).all()),
+               "hit_share": float(hit.mean()),
+               "node_visits_per_ray": stats["node_visits"] / TRAV_RAYS,
+               "tri_tests_per_ray": stats["tri_tests"] / TRAV_RAYS,
+               "walk_iterations": stats["iterations"],
+               "kernel_ms": dev_ms["kernel"], "call_ms": call_ms,
+               "pack_ms": pack_ms, "plain_ms": plain_ms, **b}
+        phase("traversal_vs_plain", rays=TRAV_RAYS, card=smi, **row)
+        check(row["same_hit_mask"], f"{sub}: hit masks differ")
+        check(row["same_index"] == 1.0, f"{sub}: triangle indices differ on "
+              f"{1 - row['same_index']:.2e} of lanes")
+        check(err <= TRAV_T_TOL, f"{sub}: t differs by {err}")
+        check(row["retired_all_miss"], f"{sub}: a retired lane hit")
+        check(row["hit_share"] > 0.3, f"{sub}: the rays miss the mesh")
+        out[sub] = row
+    return out[MESH_SUBDIVISIONS[0]]
+
+
+@contextlib.contextmanager
+def plain_traversal(max_leaf):
+    """Route find_hit's BVH search to the plain walk on the card.  The
+    package has no such switch (a CUDA tensor launches the kernel or
+    raises); this swaps the wrapper for the walk and restores it."""
+    from tpu_path_tracer_torch.kernels import traversal
+
+    kernel = traversal.closest_hit
+
+    def walk(origin, direction, bvh, tris, t_min, t_best0):
+        return traversal.bvh_closest_hit(origin, direction, bvh, tris, t_min,
+                                         t_best0, max_leaf)
+
+    traversal.closest_hit = walk
+    try:
+        yield
+    finally:
+        traversal.closest_hit = kernel
+
+
+def mesh_main_path_phase(torch, pt, device, frames=8):
+    """Phase 11: the mesh path through the entry points, with the
+    traversal kernel's launches counted around it alone; then one frame
+    through the kernel and through the plain walk, same PCG states."""
+    import numpy as np
+    from tpu_path_tracer_torch.integrator.render import render_frame
+    from tpu_path_tracer_torch.kernels import traversal
+
+    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    check(meta.traversal == "bvh", "the mesh scene has no BVH")
+    cfg = pt.RenderConfig(**MESH_KW)
+    renderer = pt.Renderer(scene, meta, cfg,
+                           pt.Camera(eye=MESH_EYE, center=[0, 0, 0]))
+    torch.cuda.synchronize()
+    traversal.LAUNCHES = 0
+    start = time.perf_counter()
+    fb = renderer.render_animation(frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = traversal.LAUNCHES
+    fb_np = fb.cpu().numpy()
+    img = renderer.display()
+    png = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
+                       "chip_smoke_mesh_512.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    renderer.save_png(png)
+    phase("mesh_main_path", tris=scene.triangles.count, frames=frames,
+          max_bounces=cfg.max_bounces, launches=launches,
+          seconds=round(seconds, 4), fb_mean=fb_np.mean(0).tolist(),
+          image_std=float(img.std()), png=os.path.relpath(png, REPO))
+    check(launches == cfg.max_bounces * frames,
+          f"traversal kernel launched {launches} times for {frames} frames "
+          f"of {cfg.max_bounces} bounces")
+    check(fb_np.shape == (cfg.width * cfg.height, 3), "framebuffer shape")
+    check(np.isfinite(fb_np).all(), "non-finite framebuffer")
+    check(float(img.std()) > 1.0, "the image is flat")
+
+    view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
+    n = cfg.width * cfg.height
+    got = render_frame(torch.zeros((n, 3), device=device), 3, True, view,
+                       scene, meta, cfg).cpu().numpy()
+    with plain_traversal(meta.max_leaf):
+        ref = render_frame(torch.zeros((n, 3), device=device), 3, True, view,
+                           scene, meta, cfg).cpu().numpy()
+    share = float(np.isclose(got, ref, rtol=KERNEL_TOL,
+                             atol=KERNEL_TOL).all(axis=-1).mean())
+    phase("mesh_main_path", case="kernel_vs_plain_frame", share_within_tol=
+          share, tol=KERNEL_TOL, max_abs_err=float(np.abs(got - ref).max()),
+          mean_kernel=got.mean(0).tolist(), mean_plain=ref.mean(0).tolist())
+    check(share >= KERNEL_MIN_SHARE,
+          f"mesh frame: only {share:.4f} of pixels within {KERNEL_TOL}")
+    check(np.allclose(got.mean(0), ref.mean(0), rtol=KERNEL_MEAN_RTOL,
+                      atol=1e-6), "mesh frame: image means differ")
+    return launches
+
+
+def mesh_timing_phase(torch, pt, device, smi):
+    """Phase 12: median frame times at 512x512 and 81,920 triangles through
+    the kernel and through the plain walk, in turns (plain, kernel,
+    kernel, plain); through the kernel at 1024x1024 with 327,680
+    triangles; the device time of a 512x512 mesh frame by kernel and the
+    packing's time per launch."""
+    from tpu_path_tracer_torch.integrator.render import render_frame
+    from tpu_path_tracer_torch.kernels import traversal
+
+    view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
+    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    cfg = pt.RenderConfig(**MESH_KW)
+    runs = {"plain": (1, 3), "kernel": (2, 8)}   # warm-up, timed frames
+    samples = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        warmup, frames = runs[name]
+        ctx = (plain_traversal(meta.max_leaf) if name == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            t = time_frames(torch, pt, device, scene, meta, cfg, view,
+                            warmup + frames)
+        samples[name] += t[warmup:]
+    out = {}
+    for name, t in samples.items():
+        out[name] = statistics.median(t)
+        phase("mesh_timing", version=name, tris=scene.triangles.count,
+              size=f"{cfg.width}x{cfg.height}", max_bounces=cfg.max_bounces,
+              ms_per_frame=out[name], ms_min=min(t), ms_max=max(t),
+              frames=len(t), card=smi)
+
+    n = cfg.width * cfg.height
+    fb = torch.zeros((n, 3), device=device)
+    frame = [0]
+
+    def one_frame():
+        frame[0] += 1
+        render_frame(fb, frame[0], frame[0] == 1, view, scene, meta, cfg)
+
+    dev_ms, rows = profile_device_ms(
+        torch, one_frame, 4, {"traversal": ["bvh_closest_hit"]})
+    pack_ms = time_events(
+        torch, lambda: traversal.pack_bvh(scene.bvh, scene.triangles), 20)
+    phase("mesh_profile", tris=scene.triangles.count,
+          size=f"{cfg.width}x{cfg.height}", frames=4,
+          pack_ms_per_launch=pack_ms,
+          traversal_device_ms_per_frame=dev_ms["traversal"],
+          traversal_device_ms_per_launch=(
+              dev_ms["traversal"] / cfg.max_bounces
+              if rows else "not measured"),
+          device_ms_per_frame=dev_ms["all"], frame_wall_ms=out["kernel"],
+          device_busy_share=(dev_ms["all"] / out["kernel"] if rows
+                             else "not measured"),
+          top=[{"name": e.key[:60], "calls": e.count,
+                "ms_per_frame": device_us(e) / 1e3 / 4} for e in rows[:8]])
+    out["kernel_device_ms_per_launch"] = (
+        dev_ms["traversal"] / cfg.max_bounces if rows else "not measured")
+
+    big, big_meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[1])
+    big_cfg = cfg.replace(width=2 * cfg.width, height=2 * cfg.height)
+    t = time_frames(torch, pt, device, big, big_meta, big_cfg, view, 1 + 4)
+    phase("mesh_timing", version="kernel", tris=big.triangles.count,
+          size=f"{big_cfg.width}x{big_cfg.height}", max_bounces=big_cfg.max_bounces,
+          ms_per_frame=statistics.median(t[1:]), ms_min=min(t[1:]),
+          ms_max=max(t[1:]), frames=len(t) - 1, card=smi)
+    return out
+
+
+def mesh_train_phase(torch, pt, device, steps=3):
+    """Phase 13: the training path on the mesh scene: emission and vertex
+    parameters, the BVH refit inside apply_params every step, the
+    traversal kernel's launches counted around the steps alone."""
+    import numpy as np
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.dist import render_dist
+    from tpu_path_tracer_torch.kernels import traversal
+
+    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    cfg = pt.RenderConfig(**MESH_KW)
+    view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
+    frame = render_dist.make_sharded_frame_fn(None, meta, cfg)
+    with torch.no_grad():
+        target = frame(torch.zeros((render_dist.padded_pixels(cfg), 3),
+                                   device=device), 1, True, view, scene)
+    # cli train's perturbation: geometry shifted, emission halved.
+    params = {k: (v + 0.05 if k.startswith("tri_") else v * 0.5)
+              .detach().clone().requires_grad_(True)
+              for k, v in extract_params(scene, MESH_GROUPS).items()}
+    optimizer = torch.optim.Adam(params.values(), lr=5e-3)
+    step = render_dist.make_train_step(None, scene, meta, cfg, apply_params,
+                                       optimizer)
+    torch.cuda.synchronize()
+    traversal.LAUNCHES = 0
+    losses, step_ms, grad_max = [], [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        losses.append(float(step(params, target, 1, view)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        grad_max.append({k: float(v.grad.abs().max())
+                         for k, v in params.items()})
+        for k, v in params.items():
+            check(bool(torch.isfinite(v.grad).all()),
+                  f"non-finite gradient {k}")
+    launches = traversal.LAUNCHES
+    phase("mesh_train", tris=scene.triangles.count,
+          size=f"{cfg.width}x{cfg.height}",
+          max_bounces=cfg.max_bounces, groups=list(MESH_GROUPS), steps=steps,
+          losses=losses, step_ms=step_ms, grad_max=grad_max,
+          launches=launches)
+    check(all(np.isfinite(losses)), "non-finite mesh training loss")
+    check(all(g[k] > 0 for g in grad_max for k in ("tri_a", "tri_b",
+                                                   "tri_c")),
+          "zero vertex gradients")
+    check(launches == cfg.max_bounces * steps,
+          f"traversal kernel launched {launches} times in {steps} steps")
+    return statistics.median(step_ms)
+
+
+def mesh_cli_phase(pt):
+    """Phase 14: the render command on an OBJ that save_obj wrote, through
+    a median BVH, on the card (the command's default device)."""
+    from tpu_path_tracer_torch.scene.objreader import save_obj
+
+    out_dir = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
+                           "chip_smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    obj = os.path.join(out_dir, "ico.obj")
+    png = os.path.join(out_dir, "ico.png")
+    if os.path.exists(png):
+        os.remove(png)
+    save_obj(obj, pt.procedural.icosphere(subdivisions=5, radius=0.6))
+    cmd = [sys.executable, "-m", "tpu_path_tracer_torch", "render", "--scene",
+           obj, "--bvh", "median", "--frames", "2", "--width", "128",
+           "--height", "128", "--bounces", "4", "-o", png]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - start
+    phase("mesh_cli", rc=proc.returncode, seconds=round(seconds, 2),
+          stdout=proc.stdout.strip().splitlines()[-2:],
+          png=os.path.relpath(png, REPO))
+    check(proc.returncode == 0, f"render command failed: {proc.stderr}")
+    check(os.path.exists(png), "render command wrote no PNG")
+    check("on cuda" in proc.stdout, "render command did not run on the card")
+
+
 def run():
     import torch
 
@@ -682,19 +1203,46 @@ def run():
     grad_abs, grad_rel = grad_phase(torch, pt, device)
     train_launches = train_phase(torch, pt, device)
     train_times, kernel_ms = train_timing_phase(torch, pt, device, smi)
+    trav = traversal_phase(torch, pt, device, smi)
+    mesh_launches = mesh_main_path_phase(torch, pt, device)
+    mesh_times = mesh_timing_phase(torch, pt, device, smi)
+    mesh_train_phase(torch, pt, device)
+    mesh_cli_phase(pt)
+    ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
+    fwd_bound = megakernel_bound(
+        torch, pt, device, ref, ref_meta,
+        pt.RenderConfig(width=512, height=512, max_bounces=4),
+        [0.5, 0.0, 2.5], backward=False)
+    cornell, cornell_meta, _ = pt.builtin.cornell_box(device=device)
+    bwd_bound = megakernel_bound(torch, pt, device, cornell, cornell_meta,
+                                 pt.RenderConfig(**TRAIN_KW), [0, 0, 3.2],
+                                 backward=True)
+    phase("bounds", megakernel_fwd=fwd_bound, megakernel_bwd=bwd_bound,
+          bvh_closest_hit={k: trav[k] for k in ("bound_ms", "bound_by",
+                                                "flops", "bytes")})
     print(json.dumps({"kernels": [
         {"name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": train_launches["megakernel_fwd"],
          "max_abs_err": max_err, "ms": times["kernel"],
-         "plain_ms": times["plain"]},
+         "plain_ms": times["plain"], "bound_ms": fwd_bound["bound_ms"],
+         "bound_by": fwd_bound["bound_by"], "library_ms": None},
         {"name": "megakernel_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES,
          "launches": train_launches["megakernel_bwd"],
          "max_abs_err": grad_abs, "max_err_over_group_max": grad_rel,
          "ms": train_times["kernel"]["bwd_ms"],
          "plain_ms": train_times["plain"]["bwd_ms"],
-         "device_ms": kernel_ms["megakernel_bwd"]}]}))
+         "device_ms": kernel_ms["megakernel_bwd"],
+         "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"],
+         "library_ms": None},
+        {"name": "bvh_closest_hit", "route": "cuda", "source": TRAV_SOURCE,
+         "replaces": TRAV_REPLACES, "launches": mesh_launches,
+         "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],
+         "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
+         "bound_by": trav["bound_by"], "library_ms": None,
+         "main_path_ms_per_launch":
+             mesh_times["kernel_device_ms_per_launch"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

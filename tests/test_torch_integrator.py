@@ -192,11 +192,12 @@ def test_degenerate_renders_match_jax(case):
     if case == "no_primitives":
         for b in (jb, tb):
             b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
-        (jscene, jmeta), (tscene, tmeta) = jb.build(), tb.build()
+        (jscene, jmeta), (tscene, tmeta) = jb.build(), tb.build(
+            device="cpu")
         kw = dict(width=4, height=2, max_bounces=3, use_megakernel=True)
     else:
         jscene, jmeta, _ = tpt.builtin.cornell_box()
-        tscene, tmeta, _ = pt.builtin.cornell_box()
+        tscene, tmeta, _ = pt.builtin.cornell_box(device="cpu")
         kw = dict(width=4, height=2, max_bounces=0)
     view = tpt.Camera(eye=[0, 0, 3.2]).view_matrix
     pix = np.arange(8, dtype=np.uint32)

@@ -44,7 +44,7 @@ def test_renderer_progressive_matches_jax():
     op: framebuffer at rtol = atol = 2e-4, the displayed uint8 image
     equal."""
     cfg_kw = dict(width=16, height=8, max_bounces=4, importance_sampling=True)
-    tscene, tmeta, _ = pt.builtin.cornell_box()
+    tscene, tmeta, _ = pt.builtin.cornell_box(device="cpu")
     renderer = pt.Renderer(tscene, tmeta, pt.RenderConfig(**cfg_kw),
                            camera=pt.Camera(eye=[0, 0, 3.2]))
     jscene, jmeta, _ = tpt.builtin.cornell_box()
@@ -73,7 +73,7 @@ def test_renderer_progressive_matches_jax():
 
 
 def test_renderer_save_png_and_single_frame(tmp_path):
-    scene, meta, _ = pt.builtin.cornell_box()
+    scene, meta, _ = pt.builtin.cornell_box(device="cpu")
     renderer = pt.Renderer(scene, meta,
                            pt.RenderConfig(width=8, height=4, max_bounces=2),
                            camera=pt.Camera(eye=[0, 0, 3.2]))
@@ -108,7 +108,7 @@ def _golden_view(eye):
 def test_port_against_jax_goldens(name):
     scene_fn, eye = GOLDEN_CASES[name]
     golden = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
-    scene, meta, _ = scene_fn()
+    scene, meta, _ = scene_fn(device="cpu")
     cfg = pt.RenderConfig(**GOLDEN_KW)
     fb = torch.zeros((64 * 64, 3))
     for f in range(1, 9):
@@ -131,7 +131,7 @@ def test_golden_gap_is_xla_contraction(name):
     on every pixel), leaves the port on exactly the pixels where it
     leaves JAX op by op, and on fewer than the golden bound allows."""
     scene_fn, eye = GOLDEN_CASES[name]
-    scene, meta, _ = scene_fn()
+    scene, meta, _ = scene_fn(device="cpu")
     fb = torch.zeros((64 * 64, 3))
     port = pt.render_frame(fb, 1, True, _golden_view(eye), scene, meta,
                            pt.RenderConfig(**GOLDEN_KW)).numpy()
@@ -153,7 +153,7 @@ def test_golden_gap_is_xla_contraction(name):
 
 
 def _frame(use_megakernel, scene_fn=pt.builtin.reference_scene):
-    scene, meta, _ = scene_fn()
+    scene, meta, _ = scene_fn(device="cpu")
     cfg = pt.RenderConfig(width=16, height=8, max_bounces=3,
                           use_megakernel=use_megakernel)
     fb = torch.zeros((16 * 8, 3))
@@ -187,7 +187,7 @@ def test_megakernel_wrapper_has_no_fallback(monkeypatch):
 
 
 def test_supported_routing():
-    scene, meta, _ = pt.builtin.reference_scene()
+    scene, meta, _ = pt.builtin.reference_scene(device="cpu")
     assert mk.supported(scene, meta, pt.RenderConfig())
     assert scene.triangles.count == 12
     assert mk.resolved_spp(pt.RenderConfig(samples_per_pixel=5,
@@ -200,6 +200,9 @@ def test_port_imports_no_jax():
     code = ("import sys, tpu_path_tracer_torch, "
             "tpu_path_tracer_torch.kernels.megakernel, "
             "tpu_path_tracer_torch.kernels._build, "
+            "tpu_path_tracer_torch.kernels.traversal, "
+            "tpu_path_tracer_torch.accel.native, "
+            "tpu_path_tracer_torch.accel.refit, "
             "tpu_path_tracer_torch.renderer, "
             "tpu_path_tracer_torch.diff.params, "
             "tpu_path_tracer_torch.dist.render_dist, "

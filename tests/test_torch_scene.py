@@ -15,11 +15,13 @@ import tpu_path_tracer_torch as pt
 from tpu_path_tracer_torch.kernels import megakernel as tmk
 
 SCENES = {
-    "reference": (lambda m: m.builtin.reference_scene(), {}),
-    "reference_mini": (lambda m: m.builtin.reference_scene(mini=True), {}),
+    "reference": (lambda m, **kw: m.builtin.reference_scene(**kw), {}),
+    "reference_mini": (
+        lambda m, **kw: m.builtin.reference_scene(mini=True, **kw), {}),
     "reference_no_mesh": (
-        lambda m: m.builtin.reference_scene(include_mesh=False), {}),
-    "cornell": (lambda m: m.builtin.cornell_box(), {}),
+        lambda m, **kw: m.builtin.reference_scene(include_mesh=False, **kw),
+        {}),
+    "cornell": (lambda m, **kw: m.builtin.cornell_box(**kw), {}),
 }
 
 
@@ -39,7 +41,7 @@ def test_builtin_scene_equals_jax(name):
     numpy bridge of the JAX scene gives the same arrays."""
     build, _ = SCENES[name]
     jscene, jmeta, _ = build(tpt)
-    tscene, tmeta, _ = build(pt)
+    tscene, tmeta, _ = build(pt, device="cpu")
     bridged = pt.scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
     assert dataclasses.asdict(tmeta) == dataclasses.asdict(jmeta)
     assert tscene.light_index == int(jscene.light_index)
@@ -74,7 +76,7 @@ def test_pack_tables_equal(name):
     zero row for its TPU block shapes, the port packs no rows."""
     build, _ = SCENES[name]
     jscene, _, _ = build(tpt)
-    tscene, _, _ = build(pt)
+    tscene, _, _ = build(pt, device="cpu")
     counts = (tscene.spheres.count, tscene.quads.count,
               tscene.triangles.count, 1)
     for j, t, n in zip(jmk.pack_tables(jscene), tmk.pack_tables(tscene),
@@ -89,7 +91,7 @@ def test_empty_families_pack_no_rows():
     b = pt.SceneBuilder()
     m = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
     b.add_sphere([0, 0, 0], 0.5, m)
-    scene, meta = b.build()
+    scene, meta = b.build(device="cpu")
     sph, quad, tri, light = tmk.pack_tables(scene)
     assert sph.shape == (1, tmk.SPH_COLS)
     assert quad.shape == (0, tmk.QUAD_COLS)
@@ -99,19 +101,29 @@ def test_empty_families_pack_no_rows():
 
 
 def test_bvh_scene_raises():
-    """A scene beyond the brute-force sweep needs a BVH, which the port
-    does not build yet: it says so instead of building something else."""
+    """A scene beyond the brute-force sweep gets a BVH, as in the JAX
+    package: "auto" builds an LBVH over its triangles, and "sah" on a
+    small mesh builds what it names; only a builder that does not exist
+    raises.  The BVH and the triangle order are the JAX package's."""
     from tpu_path_tracer_torch.scene.builder import BRUTE_FORCE_MAX_TRIS
 
-    b = pt.SceneBuilder()
-    m = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
+    builders = (tpt.SceneBuilder(), pt.SceneBuilder())
     cube = pt.procedural.cube()
-    for k in range(BRUTE_FORCE_MAX_TRIS // cube.num_triangles + 1):
-        b.add_mesh(cube, m, pt.Transform().update(
-            pt.Transform.translate(3.0 * k, 0, 0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        b.build()
+    for b, pkg in zip(builders, (tpt, pt)):
+        m = b.add_material("white", pt.LAMBERTIAN, [0.7, 0.7, 0.7])
+        for k in range(BRUTE_FORCE_MAX_TRIS // cube.num_triangles + 1):
+            b.add_mesh(pkg.procedural.cube(), m, pkg.Transform().update(
+                pkg.Transform.translate(3.0 * k, 0, 0)))
+    (jscene, jmeta), (scene, meta) = (builders[0].build(),
+                                      builders[1].build(device="cpu"))
+    assert meta.traversal == jmeta.traversal == "bvh"
+    np.testing.assert_array_equal(scene.bvh.miss.numpy(),
+                                  np.asarray(jscene.bvh.miss))
+    np.testing.assert_array_equal(scene.triangles.a.numpy(),
+                                  np.asarray(jscene.triangles.a))
     small = pt.SceneBuilder()
     small.add_mesh(cube, small.add_material("w", pt.LAMBERTIAN, [1, 1, 1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.build(bvh="sah")
+    _, meta = small.build(bvh="sah", device="cpu")
+    assert meta.traversal == "bvh"
+    with pytest.raises(ValueError, match="expected one of"):
+        small.build(bvh="kd", device="cpu")

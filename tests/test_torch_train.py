@@ -44,6 +44,7 @@ from tpu_path_tracer_torch.dist import render_dist
 from tpu_path_tracer_torch.integrator.render import (path_trace_pixels as
                                                      tptp, pixel_grid)
 from tpu_path_tracer_torch.kernels import megakernel as mk
+from tpu_path_tracer_torch.scene.objreader import save_obj
 
 GRAD_RTOL = 2e-3   # tests/test_pallas.py:160
 LOSS_RTOL = 1e-6   # tests/test_pallas.py:183
@@ -182,7 +183,7 @@ def test_wavefront_grads_match_jax(name):
 
 
 def _cornell_grads(**cfg_kw):
-    tscene, tmeta, _ = pt.builtin.cornell_box()
+    tscene, tmeta, _ = pt.builtin.cornell_box(device="cpu")
     cfg = pt.RenderConfig(width=8, height=4, max_bounces=5,
                           importance_sampling=True, **cfg_kw)
     view = pt.Camera(eye=[0, 0, 3.2]).view_matrix
@@ -220,7 +221,7 @@ def test_unroll_budget_error_and_vjp_supported():
     """Gradients of the megakernel route over MAX_UNROLL_BOUNCES bounce
     bodies raise with the JAX package's message, naming the wavefront;
     the forward alone still runs (megakernel.py:812-817)."""
-    scene, meta, _ = pt.builtin.cornell_box()
+    scene, meta, _ = pt.builtin.cornell_box(device="cpu")
     cfg = pt.RenderConfig(width=4, height=2, use_megakernel=True,
                           max_bounces=mk.MAX_UNROLL_BOUNCES + 1)
     assert not mk.vjp_supported(scene, meta, cfg)
@@ -247,7 +248,7 @@ def test_light_pdf_gradient_is_finite_for_ended_paths():
     in its backward, putting NaN into the quad gradients of the whole
     frame.  This pixel of a 512x512 Cornell frame (6 bounces, NEE) showed
     it; the JAX wavefront gives finite gradients there."""
-    scene, meta, _ = pt.builtin.cornell_box()
+    scene, meta, _ = pt.builtin.cornell_box(device="cpu")
     cfg = pt.RenderConfig(width=512, height=512, max_bounces=6,
                           importance_sampling=True)
     params = {k: v.clone().requires_grad_(True) for k, v in
@@ -291,9 +292,6 @@ def test_params_match_jax():
     np.testing.assert_array_equal(ts.materials.eta.numpy(), moved["eta"])
     with pytest.raises(ValueError, match="unknown param groups"):
         tparams.extract_params(tscene, ("lights",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tparams.apply_params(tscene._replace(bvh=object()),
-                             {k: tp[k] for k in ("tri_a", "tri_b", "tri_c")})
 
 
 def test_train_step_matches_jax_and_optax():
@@ -363,7 +361,7 @@ def test_cli_grad_check_passes(capsys):
     """`grad-check` in process on the CPU: autodiff against finite
     differences on emission and albedo, PASS and exit code 0."""
     with pytest.raises(SystemExit) as exc:
-        cli.main(["grad-check", "--bounces", "2"])
+        cli.main(["grad-check", "--bounces", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert exc.value.code == 0, out
     assert "grad-check: PASS" in out
@@ -374,7 +372,7 @@ def test_cli_train_runs(capsys):
     route (its plain version here): three falling losses and the error
     report."""
     cli.main(["train", "--steps", "3", "--megakernel",
-              "--importance-sampling"])
+              "--importance-sampling", "--device", "cpu"])
     out = capsys.readouterr().out
     losses = [float(line.split()[-1]) for line in out.splitlines()
               if line.startswith("step")]
@@ -386,8 +384,6 @@ def test_cli_train_runs(capsys):
 @pytest.mark.parametrize("argv", [
     ["train", "--devices", "2"],
     ["render", "--multihost"],
-    ["render", "--bvh", "median"],
-    ["grad-check", "--scene", "mesh.obj"],
     ["render", "--interactive"],
     ["render", "--checkpoint", "ck.npz"],
     ["bench"],
@@ -395,6 +391,29 @@ def test_cli_train_runs(capsys):
 def test_cli_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("method", ["median", "lbvh"])
+def test_cli_renders_an_obj_through_a_bvh(tmp_path, method, capsys):
+    """`render --scene mesh.obj --bvh <method> --device cpu` on an OBJ that
+    save_obj wrote: one 16x16 frame and a PNG."""
+    obj = tmp_path / "ico.obj"
+    save_obj(str(obj), pt.procedural.icosphere(3, 0.6))
+    png = tmp_path / "out.png"
+    cli.main(["render", "--scene", str(obj), "--bvh", method, "--width",
+              "16", "--height", "16", "--bounces", "3", "--frames", "1",
+              "--device", "cpu", "-o", str(png)])
+    assert "on cpu" in capsys.readouterr().out
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cli_without_a_card_raises(monkeypatch):
+    """The commands run on the card by default; without one they raise,
+    naming --device cpu, and do not carry on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["render"], ["train", "--steps", "1"], ["grad-check"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
 
 
 # The backward kernel's source built as plain C++ for the CPU: the adjoint
@@ -454,15 +473,15 @@ def host_adjoint(tmp_path_factory):
 # name: (scene, eye, config, groups); every case differentiates the view.
 HOST_CASES = {
     "cornell_nee_6_bounces": (
-        pt.builtin.cornell_box, [0, 0, 3.2],
+        lambda: pt.builtin.cornell_box(device="cpu"), [0, 0, 3.2],
         dict(max_bounces=6, importance_sampling=True),
         ("emission", "bsdf", "quads")),
     "reference_nee": (
-        pt.builtin.reference_scene, [0.5, 0.0, 2.5],
+        lambda: pt.builtin.reference_scene(device="cpu"), [0.5, 0.0, 2.5],
         dict(max_bounces=5, importance_sampling=True),
         ("emission", "bsdf", "spheres", "quads", "vertices")),
     "cornell_stratified_spp4": (
-        pt.builtin.cornell_box, [0, 0, 3.2],
+        lambda: pt.builtin.cornell_box(device="cpu"), [0, 0, 3.2],
         dict(max_bounces=3, samples_per_pixel=4, stratify=True,
              importance_sampling=True), ("emission", "bsdf", "quads")),
     "tent_vertices": (

@@ -1,9 +1,11 @@
 """tpu_path_tracer_torch: the path tracer on PyTorch and CUDA.
 
 A port of ``tpu_path_tracer`` (JAX/Pallas for TPU) that imports no JAX.
-Plain tensor code is PyTorch; the fused megakernel and its backward are
-hand-written CUDA for Hopper (``csrc/megakernel_fwd.cu``,
-``csrc/megakernel_bwd.cu``).  Training: ``diff.params``,
+Plain tensor code is PyTorch; the fused megakernel, its backward and the
+BVH traversal are hand-written CUDA for Hopper (``csrc/megakernel_fwd.cu``,
+``csrc/megakernel_bwd.cu``, ``csrc/traversal.cu``).  Meshes: OBJ files
+(``scene.objreader``) and ``procedural`` meshes behind the BVH builders of
+``accel``.  Training: ``diff.params``,
 ``dist.render_dist.make_train_step`` and ``python -m tpu_path_tracer_torch
 train``.  Public API re-exports below, matching the JAX package for what
 is ported; see README.md.

@@ -2,15 +2,17 @@
 package's subcommands, flags and defaults::
 
     python -m tpu_path_tracer_torch render --scene reference -o out.png
+    python -m tpu_path_tracer_torch render --scene mesh.obj --bvh median
     python -m tpu_path_tracer_torch train --params emission,bsdf
     python -m tpu_path_tracer_torch grad-check
     python -m tpu_path_tracer_torch info
 
-Everything runs on the first CUDA device when there is one, else on the
-CPU.  ``--megakernel`` routes tracing, and training's gradients, through
-the CUDA megakernels (on the CPU, through their plain version).  Options
-whose machinery is not ported yet raise, naming the ROADMAP item that
-brings it.
+Everything runs on the first CUDA device; without one it raises, and
+``--device cpu`` is the only way onto the CPU.  ``--megakernel`` routes
+tracing, and training's gradients, through the CUDA megakernels (on the
+CPU, through their plain version); an OBJ mesh goes through a BVH and the
+CUDA traversal kernel.  Options whose machinery is not ported yet raise,
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -26,26 +28,41 @@ def _unported(what: str, item: str):
                               f"{item}")
 
 
-def _device():
+def _device(args):
     import torch
 
-    return torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
+    if args.device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available; "
+                           "pass --device cpu to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def _build_scene(args, device):
+    from .core.config import LAMBERTIAN
     from .scene import builtin
+    from .scene.builder import SceneBuilder
+    from .scene.objreader import load_obj
 
-    if args.bvh not in ("auto", "none"):
-        _unported(f"--bvh {args.bvh}", "items 7-8 (BVH build, traversal)")
     if args.scene == "cornell":
-        scene, meta, _ = builtin.cornell_box(device=device)
+        scene, meta, _ = builtin.cornell_box(bvh=args.bvh, device=device)
         eye = [0.0, 0.0, 3.2]
     elif args.scene == "reference":
-        scene, meta, _ = builtin.reference_scene(device=device)
+        scene, meta, _ = builtin.reference_scene(bvh=args.bvh, device=device)
         eye = [0.5, 0.0, 2.5]  # index.js:39
-    else:
-        _unported("an OBJ --scene", "items 7-8 (OBJ loading, BVH)")
+    else:  # an OBJ path, in the JAX package's room
+        b = SceneBuilder()
+        white = b.add_material("white", LAMBERTIAN, [0.73, 0.73, 0.73])
+        light = b.add_material("light", LAMBERTIAN, [0, 0, 0],
+                               emission=(15, 15, 15))
+        b.add_quad([-0.4, 0.999, -0.4], [0.8, 0, 0], [0, 0, 0.8], light)
+        b.add_quad([-1, -1, -1], [2, 0, 0], [0, 2, 0], white)
+        b.add_quad([-1, 1, -1], [2, 0, 0], [0, 0, 2], white)
+        b.add_quad([1, -1, -1], [-2, 0, 0], [0, 0, 2], white)
+        b.add_mesh(load_obj(args.scene), white)
+        scene, meta = b.build(bvh=args.bvh, device=device)
+        eye = [0.0, 0.0, 3.2]
     return scene, meta, eye
 
 
@@ -69,6 +86,9 @@ def _add_common(p):
     p.add_argument("--megakernel", action="store_true",
                    help="route tracing through the fused CUDA megakernels "
                         "(analytic scenes + small meshes)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the first CUDA device (raises "
+                        "without one) or the CPU")
 
 
 def _check_single_device(args):
@@ -103,7 +123,7 @@ def cmd_render(args):
     if args.log_performance or args.log_samples:
         _unported("--log-performance / --log-samples",
                   "item 10 (frame statistics)")
-    device = _device()
+    device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args)
     r = Renderer(scene, meta, cfg, Camera(eye=args.eye or eye,
@@ -139,7 +159,7 @@ def cmd_grad_check(args):
     from .integrator.render import path_trace_pixels
 
     _check_single_device(args)
-    device = _device()
+    device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args).replace(width=64, height=64,
                                   max_bounces=min(args.bounces, 4))
@@ -187,7 +207,7 @@ def cmd_train(args):
                                    padded_pixels)
 
     _check_single_device(args)
-    device = _device()
+    device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args).replace(width=64, height=64,
                                   max_bounces=min(args.bounces, 4))

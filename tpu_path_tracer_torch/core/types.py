@@ -80,9 +80,12 @@ class Triangles(NamedTuple):
 
 
 class FlatBVH(NamedTuple):
-    """Flattened DFS-preorder BVH, fields as in the JAX package.  Declared
-    for the scene layout only: the port builds no BVH yet (ROADMAP Queue 1
-    item 7), so ``SceneData.bvh`` is always None."""
+    """Flattened DFS-preorder BVH (``accel.bvh``), fields as in the JAX
+    package: the left child of node i is i + 1, ``miss`` is the first node
+    past i's subtree, and i's triangles are ``[prim_lo, prim_hi)`` of the
+    reordered triangle table.  ``SceneBuilder.build`` fills it for BVH
+    scenes (else ``SceneData.bvh`` is None); ``kernels.traversal`` walks
+    it and ``accel.refit`` recomputes its bounds."""
     mins: torch.Tensor        # [B, 3] f32
     maxs: torch.Tensor        # [B, 3] f32
     right: torch.Tensor       # [B] i64 — right-child index (interior), -1 leaf

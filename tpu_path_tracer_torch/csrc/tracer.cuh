@@ -199,10 +199,12 @@ TPT_HD void sphere_roots(V3 o, V3 d, const float* S, float& r0, float& r1,
 }
 
 // Möller-Trumbore with the reference's t_min barycentric guards and the
-// absolute DET_EPS parallel cull (kernels/intersect.py).  Returns whether
-// the ray hits; tt, uu, vv, ww are the distance and barycentrics.
-TPT_HD bool triangle_test(const Params& p, const float* T, V3 o, V3 d,
-                          float& tt, float& uu, float& vv, float& ww) {
+// absolute DET_EPS parallel cull (kernels/intersect.py triangle_t), the
+// hit accepted for t in [t_min, t_max].  T points at the corners a, b, c
+// (9 floats).  Returns whether the ray hits; tt, uu, vv, ww are the
+// distance and barycentrics.
+TPT_HD bool triangle_mt(const float* T, V3 o, V3 d, float t_min, float t_max,
+                        float& tt, float& uu, float& vv, float& ww) {
   const V3 a = load3(T), b = load3(T + 3), c = load3(T + 6);
   const V3 ab = v3(b.x - a.x, b.y - a.y, b.z - a.z);
   const V3 ac = v3(c.x - a.x, c.y - a.y, c.z - a.z);
@@ -217,8 +219,15 @@ TPT_HD bool triangle_test(const Params& p, const float* T, V3 o, V3 d,
   uu = (ac.x * dao.x + ac.y * dao.y + ac.z * dao.z) * invd;
   vv = -(ab.x * dao.x + ab.y * dao.y + ab.z * dao.z) * invd;
   ww = 1.0f - uu - vv;
-  return det_ok && (tt >= p.t_min) && (tt <= p.t_max) && (uu >= p.t_min) &&
-         (vv >= p.t_min) && (ww >= p.t_min);
+  return det_ok && (tt >= t_min) && (tt <= t_max) && (uu >= t_min) &&
+         (vv >= t_min) && (ww >= t_min);
+}
+
+// The megakernel's triangle test: a row of the packed triangle table,
+// bounded by the scene's t range.
+TPT_HD bool triangle_test(const Params& p, const float* T, V3 o, V3 d,
+                          float& tt, float& uu, float& vv, float& ww) {
+  return triangle_mt(T, o, d, p.t_min, p.t_max, tt, uu, vv, ww);
 }
 
 // The winner of one hit search.

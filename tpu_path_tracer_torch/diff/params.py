@@ -15,13 +15,11 @@ from typing import Dict, Iterable
 
 import torch
 
+from ..accel.refit import refit_bvh
 from ..core import vecmath as vm
 from ..core.types import SceneData
 
 GROUPS = ("emission", "bsdf", "vertices", "spheres", "quads")
-
-_NO_REFIT = ("moving triangle vertices of a BVH scene needs the BVH refit: "
-             "ROADMAP Queue 1 item 9")
 
 
 def extract_params(scene: SceneData,
@@ -60,7 +58,9 @@ def apply_params(scene: SceneData, params: Dict) -> SceneData:
     recomputed from ``q``, ``u`` and ``v`` with the formulas of the JAX
     package (``quad.js:21-27``).  The megakernel reads quad geometry through
     those stored columns, so this is the only way its quad gradients reach
-    ``q``, ``u`` and ``v``."""
+    ``q``, ``u`` and ``v``.  Moving the vertices of a BVH scene refits the
+    BVH's bounds to them (``accel.refit``, on the scene's device, outside
+    autograd), so every training path keeps the traversal right."""
     mats = scene.materials
     if "emission" in params:
         mats = mats._replace(emission=params["emission"])
@@ -73,10 +73,10 @@ def apply_params(scene: SceneData, params: Dict) -> SceneData:
             eta=params["eta"])
     scene = scene._replace(materials=mats)
     if "tri_a" in params:
-        if scene.bvh is not None:
-            raise NotImplementedError(_NO_REFIT)
         scene = scene._replace(triangles=scene.triangles._replace(
             a=params["tri_a"], b=params["tri_b"], c=params["tri_c"]))
+        if scene.bvh is not None:
+            scene = scene._replace(bvh=refit_bvh(scene.bvh, scene.triangles))
     if "sphere_center" in params:
         scene = scene._replace(spheres=scene.spheres._replace(
             center=params["sphere_center"], radius=params["sphere_radius"]))

@@ -5,7 +5,9 @@ PyTorch header is compiled, so a build takes seconds.  It is built at first
 use from the ``.cu`` files under ``tpu_path_tracer_torch/csrc/`` into
 ``tpu_path_tracer_torch/_build/``, under a name keyed by a hash of the
 sources, the headers they include (``.cuh``) and the flags, so an edited
-source or header is rebuilt and an unchanged one is not.
+source or header is rebuilt and an unchanged one is not.  Each source is
+compiled by its own ``nvcc``, all started together, and the objects are
+linked into the library.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # --fmad=false: no a*b+c contraction, matching the references' rounding
 # (see the note at the top of csrc/tracer.cuh).  -Xptxas -v reports
 # registers, shared memory and spills into the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
 
 _lib = None
@@ -53,15 +55,32 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
+    nvcc = nvcc_path()
+    stem = f"{lib_path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{stem}.so.tmp"
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                                   f"{proc.returncode}):\n{log}")
+        cmd = [nvcc, "-shared", *GENCODE, "-o", str(tmp),
+               *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        lib_path.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, lib_path)
+    finally:
+        for path in objects + [tmp]:
+            path.unlink(missing_ok=True)
     return lib_path
 
 

@@ -9,8 +9,9 @@
 2. ``shade_hit`` — recomputes t, hit point and shading normal of each
    lane's winner from raw geometry in closed form.
 
-Triangles go through the brute-force sweep only; BVH traversal is ROADMAP
-Queue 1 item 8.
+Triangles of a BVH scene go through ``traversal.closest_hit`` (the CUDA
+kernel on the card, the plain skip-link walk on the CPU), those of a small
+mesh through the brute-force sweep.
 """
 
 from __future__ import annotations
@@ -20,22 +21,10 @@ import torch
 from ..core import rng, vecmath as vm
 from ..core.config import ISOTROPIC, RenderConfig
 from ..core.types import HitRecord, Ray, SceneData, SceneMeta
-from . import intersect
+from . import intersect, traversal
 
 # Winner primitive-type codes (per-lane).
 MISS, SPHERE, QUAD, TRIANGLE, VOLUME = -1, 0, 1, 2, 3
-
-
-def brute_force_closest_hit(origin, direction, tris, t_min: float, t_best0):
-    """Dense ``[N, T]`` triangle sweep; returns (t [N], tri_index [N], -1
-    for a miss) — ``tpu_path_tracer.kernels.traversal``."""
-    t, _, _, _ = intersect.triangle_t(
-        origin[:, None], direction[:, None], tris.a[None], tris.b[None],
-        tris.c[None], t_min, t_best0[:, None])
-    t_min_v, idx = torch.min(t, dim=1)
-    hit = t_min_v < t_best0
-    return (torch.where(hit, t_min_v, intersect.INF),
-            torch.where(hit, idx, -1))
 
 
 @torch.no_grad()
@@ -46,7 +35,8 @@ def find_hit(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
     the uniform that produced a volumetric scattering event.
 
     Dead lanes (``alive`` False) start from ``t_best = -INF``, so every
-    update fails and they report MISS."""
+    update fails, they report MISS, and the BVH walk leaves them at the
+    root."""
     o, d = ray.origin, ray.dir
     n_rays = o.shape[0]
     t_min = cfg.t_min
@@ -85,11 +75,14 @@ def find_hit(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
 
     tris = scene.triangles
     if tris.count and meta.traversal != "none":
-        if meta.traversal != "brute":
-            raise NotImplementedError(
-                "BVH traversal: ROADMAP Queue 1 item 8")
+        if meta.traversal == "bvh" and scene.bvh is not None:
+            found = traversal.closest_hit(o, d, scene.bvh, tris, t_min,
+                                          t_best)
+        else:
+            found = traversal.brute_force_closest_hit(o, d, tris, t_min,
+                                                      t_best)
         # A miss comes back as t = INF, which never passes the merge.
-        merge(*brute_force_closest_hit(o, d, tris, t_min, t_best), TRIANGLE)
+        merge(*found, TRIANGLE)
 
     vol_u = torch.zeros((n_rays,), dtype=torch.float32, device=o.device)
     if sph.count and meta.has_volumes:

@@ -92,6 +92,21 @@ def triangle_t(origin, direction, a, b, c, t_min, t_max):
     return torch.where(ok, t, INF), u, v, w
 
 
+def aabb_hit(origin, inv_dir, box_min, box_max, t_min, t_max):
+    """Slab test — ``hit_aabb`` (``common.wgsl:245-256``).  ``t_max`` may be
+    a per-ray running closest hit (the traversal passes t_best).  NaN
+    propagates through ``torch.minimum``/``amax`` as through the JAX ops: a
+    zero direction component with the origin on a box plane gives 0 * inf,
+    and the box then misses."""
+    t0 = (box_min - origin) * inv_dir
+    t1 = (box_max - origin) * inv_dir
+    smaller = torch.minimum(t0, t1)
+    bigger = torch.maximum(t0, t1)
+    lo = torch.clamp(torch.amax(smaller, dim=-1), min=t_min)
+    hi = torch.minimum(torch.amin(bigger, dim=-1), t_max)
+    return hi > lo
+
+
 def volume_interval(origin, direction, center, radius, t_min, t_max):
     """Entry/exit interval of a medium sphere (``hit_volume``,
     ``common.wgsl:102-129``); returns (rec1, rec2, interval_valid)."""

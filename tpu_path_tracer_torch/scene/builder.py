@@ -1,32 +1,31 @@
 """Scene construction: host-side DSL -> device SoA tensors.
 
-Counterpart of ``tpu_path_tracer.scene.builder`` for scenes whose triangles
-the brute-force sweep covers (``n_tris <= BRUTE_FORCE_MAX_TRIS``).  The
-materials table, primitive order, quad plane data and light choice are
+Counterpart of ``tpu_path_tracer.scene.builder``.  The materials table,
+primitive order, quad plane data, light choice, BVH and triangle order are
 computed exactly as there, so the two packages build equal arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..accel import bvh as bvh_mod
+from ..accel.native import build_bvh_native
 from ..core.config import ISOTROPIC
-from ..core.types import Materials, Quads, SceneData, SceneMeta, Spheres, \
-    Triangles
+from ..core.types import FlatBVH, Materials, Quads, SceneData, SceneMeta, \
+    Spheres, Triangles
 from .objreader import MeshData
 from .transform import Transform
 
-# Up to this many triangles the dense [N, T] sweep runs without a BVH
-# (tpu_path_tracer/scene/builder.py:34).
+# Up to this many triangles "auto" takes the dense [N, T] sweep and builds
+# no BVH (tpu_path_tracer/scene/builder.py:34).
 BRUTE_FORCE_MAX_TRIS = 256
-
-_NO_BVH = ("BVH scenes (more than {max} triangles, or bvh={bvh!r}) are not "
-           "ported yet: ROADMAP Queue 1 item 7 (BVH builders) and item 8 "
-           "(mesh traversal)")
+BVH_CHOICES = ("auto", "median", "sah", "lbvh", "none")
 
 
 @dataclasses.dataclass
@@ -110,12 +109,21 @@ class SceneBuilder:
             return (zero3,) * 6 + (np.zeros((0,), np.int64),)
         return tuple(np.concatenate(c) for c in cols)
 
-    def build(self, bvh: str = "auto", device="cpu"):
+    def build(self, bvh: str = "auto", max_leaf: int = 4,
+              timings: Optional[dict] = None, device="cuda"):
         """Returns ``(SceneData, SceneMeta)`` with every tensor on ``device``.
 
-        ``bvh``: "auto" or "none".  Both use the dense brute-force triangle
-        sweep; a scene that would need a BVH raises ``NotImplementedError``.
+        ``bvh``: "auto" | "median" | "sah" | "lbvh" | "none".  "auto" takes
+        the dense brute-force sweep up to ``BRUTE_FORCE_MAX_TRIS`` triangles
+        and an LBVH above.  The native C++ builders run when ``g++`` can
+        build them, else the NumPy ones (``accel``).  ``timings``: an
+        optional dict that receives ``bake_s`` (meshes to world-space
+        triangles) and ``bvh_build_s`` (the BVH construction alone); the
+        upload to ``device`` is in neither.
         """
+        if bvh not in BVH_CHOICES:
+            raise ValueError(f"bvh={bvh!r}; expected one of {BVH_CHOICES}")
+
         def f32(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
@@ -160,11 +168,34 @@ class SceneBuilder:
         quads = Quads(q=f32(q), u=f32(u), v=f32(v), normal=f32(normal),
                       d=f32(d), w=f32(w), material_id=i64(qmat))
 
+        t_bake = time.perf_counter()
         a, b, c, na, nb, nc, tmat = self._bake_triangles()
+        if timings is not None:
+            timings["bake_s"] = time.perf_counter() - t_bake
         n_tris = len(a)
-        if bvh not in ("auto", "none") or n_tris > BRUTE_FORCE_MAX_TRIS:
-            raise NotImplementedError(
-                _NO_BVH.format(max=BRUTE_FORCE_MAX_TRIS, bvh=bvh))
+        flat_bvh, traversal, leaf_bound = None, "none", 1
+        if n_tris:
+            if bvh == "auto":
+                bvh = "none" if n_tris <= BRUTE_FORCE_MAX_TRIS else "lbvh"
+            traversal = "brute"
+        if n_tris and bvh != "none":
+            t_bvh = time.perf_counter()
+            arrs = _build_bvh(bvh, *bvh_mod.triangle_aabbs(a, b, c),
+                              max_leaf)
+            if timings is not None:
+                timings["bvh_build_s"] = time.perf_counter() - t_bvh
+            order = arrs.order
+            a, b, c = a[order], b[order], c[order]
+            na, nb, nc = na[order], nb[order], nc[order]
+            tmat = tmat[order]
+            flat_bvh = FlatBVH(
+                mins=f32(arrs.mins), maxs=f32(arrs.maxs),
+                right=i64(arrs.right), prim_start=i64(arrs.prim_start),
+                prim_count=i64(arrs.prim_count), miss=i64(arrs.miss),
+                axis=i64(arrs.axis), prim_lo=i64(arrs.prim_lo),
+                prim_hi=i64(arrs.prim_hi))
+            traversal = "bvh"
+            leaf_bound = int(arrs.prim_count.max())
         triangles = Triangles(a=f32(a), b=f32(b), c=f32(c), na=f32(na),
                               nb=f32(nb), nc=f32(nc), material_id=i64(tmat))
 
@@ -178,9 +209,23 @@ class SceneBuilder:
             (mtypes[smat] == ISOTROPIC).any())
 
         scene = SceneData(materials=materials, spheres=spheres, quads=quads,
-                          triangles=triangles, bvh=None,
+                          triangles=triangles, bvh=flat_bvh,
                           light_index=light_index)
-        meta = SceneMeta(has_volumes=has_volumes,
-                         traversal="brute" if n_tris else "none",
-                         max_leaf=1, has_light=light_index >= 0)
+        meta = SceneMeta(has_volumes=has_volumes, traversal=traversal,
+                         max_leaf=leaf_bound, has_light=light_index >= 0)
         return scene, meta
+
+
+def _build_bvh(method, mins, maxs, max_leaf) -> bvh_mod.FlatBVHArrays:
+    """The native builder when it is available, else the NumPy one, with the
+    JAX package's leaf parameters: 1 for the median split (the reference's
+    leaves hold one primitive), ``max_leaf`` otherwise."""
+    arrs = build_bvh_native(method, mins, maxs,
+                            1 if method == "median" else max_leaf)
+    if arrs is not None:
+        return arrs
+    if method == "median":
+        return bvh_mod.build_median(mins, maxs)
+    if method == "sah":
+        return bvh_mod.build_sah(mins, maxs, max_leaf=max_leaf)
+    return bvh_mod.build_lbvh(mins, maxs, leaf_size=max_leaf)

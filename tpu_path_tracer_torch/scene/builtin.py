@@ -5,7 +5,8 @@ fog+glass sphere pairs (``lib/scene.js:36-103``), the 8-quad Cornell-like
 room with an emissive ceiling (``lib/scene.js:105-162``) and the rotated
 glass cube mesh (``lib/scene.js:164-187``).  ``cornell_box`` is the simpler
 diffuse analytic scene.  Materials are registered in the same order as in
-the JAX package, so material ids match.
+the JAX package, so material ids match.  Both build on the first CUDA
+device unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from . import procedural
 from .transform import Transform
 
 
-def reference_scene(include_mesh: bool = True, mini: bool = False,
-                    device="cpu"):
+def reference_scene(include_mesh: bool = True, bvh: str = "auto",
+                    mini: bool = False, device="cuda"):
     """The default scene of ``lib/scene.js``.  ``mini=True`` keeps one
     fog+glass pair per color stack (6 spheres + the lone glass sphere).
     Returns ``(SceneData, SceneMeta, SceneBuilder)``."""
@@ -100,12 +101,12 @@ def reference_scene(include_mesh: bool = True, mini: bool = False,
         t.update(Transform.rotate(math.pi / 10, [0, 1, 0]))
         b.add_mesh(procedural.cube(), glass_box, t)
 
-    scene, meta = b.build(device=device)
+    scene, meta = b.build(bvh=bvh, device=device)
     return scene, meta, b
 
 
-def cornell_box(light_emission=(15.0, 15.0, 15.0), with_spheres: bool = True,
-                device="cpu"):
+def cornell_box(light_emission=(15.0, 15.0, 15.0), bvh: str = "auto",
+                with_spheres: bool = True, device="cuda"):
     """Analytic Cornell box: 5 diffuse walls + area light (+2 diffuse
     spheres), built from the reference's commented 'classic' layout
     (``lib/scene.js:128-132``)."""
@@ -128,5 +129,5 @@ def cornell_box(light_emission=(15.0, 15.0, 15.0), with_spheres: bool = True,
         b.add_sphere([-0.45, -0.6, -0.2], 0.4, white)
         b.add_sphere([0.45, -0.7, 0.3], 0.3, red)
 
-    scene, meta = b.build(device=device)
+    scene, meta = b.build(bvh=bvh, device=device)
     return scene, meta, b
