@@ -49,7 +49,26 @@ Phases, each printed on its own line; any failure exits non-zero:
 13. mesh_train: 3 steps of ``make_train_step`` on the mesh scene at
     512x512 over emission and vertices (the BVH refit runs every step);
 14. mesh_cli: ``python -m tpu_path_tracer_torch render`` of an OBJ written
-    by ``save_obj``, through a median BVH, on the card.
+    by ``save_obj``, through a median BVH, on the card;
+15. pair_vs_plain: the two pair-sweep kernels against their plain versions
+    on the card, on the pair arrays of a real emission of phase 10's 65,536
+    rays at 81,920 and 327,680 triangles; then each entry point
+    (``pairbin_closest_hit``, ``pair_closest_hit``) against the BVH
+    kernel's answer (hit mask on every live lane, t on every lane whose
+    edge-function sums are well conditioned, the others explained in
+    float64), with rays, pairs and segments per launch, kernel, emission
+    and call times, and the BVH kernel's time beside them;
+16. pair_main_path: the mesh path of phase 11 with
+    ``traversal.PAIR_DISPATCH`` set to ``"pairbin"`` and to ``"pair"``:
+    launch counts of all three traversal kernels, every launch of one
+    frame against the plain version on the launch's own arguments, what
+    each of them served and its bound, one frame through each route
+    against the BVH-kernel frame from the same PCG states, and frame times
+    of the three routes;
+17. user_layer: the renderer's perf log and FPS cap on the card, a
+    checkpoint at frame k resumed in a new ``Renderer`` against an
+    uninterrupted render, and ``render --checkpoint`` then ``--resume`` in
+    subprocesses against the same frames in one go.
 
 Bounds: each kernel's least time on the card, the larger of its FP32
 operations over the card's FP32 peak and its bytes (inputs read once,
@@ -79,6 +98,9 @@ BWD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:804"
 TRAV_SOURCE = "tpu_path_tracer_torch/csrc/traversal.cu"
 TRAV_REPLACES = ("tpu_path_tracer/kernels/pallas/traversal.py:752, "
                  "tpu_path_tracer/kernels/pallas/traversal.py:865")
+PAIR_SOURCE = "tpu_path_tracer_torch/csrc/pair_sweep.cu"
+PAIRBIN_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1417"
+PAIR_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1723"
 
 # Phase 3: per-pixel tolerance of the JAX package's own kernel parity tests
 # (tests/test_pallas.py:52).  The kernel and the wavefront evaluate sinf,
@@ -128,6 +150,39 @@ TRAV_RAYS = 65536
 # Traversal contract (tests/test_pallas.py:284-289): the same hit mask and
 # triangle index on every lane, t within 1e-5.
 TRAV_T_TOL = 1e-5
+# The pair sweeps (phases 15-16).  Kernel against plain version: the same
+# arithmetic in the same order, so the same index on every row and t within
+# 1e-5 (equal bits expected).  Entry point against the BVH kernel: the same
+# hit mask on every live lane, and the tolerance of
+# tests/test_pallas.py:391-393, t within rtol 1e-3 / atol 1e-4 on lanes
+# both hit.  The JAX tests hold every lane to it at 20,480 triangles and
+# 2,048 rays; at this phase's sizes not every lane can meet it.  The
+# edge-function form computes n . d as the sum of three edge volumes
+# d . (p x q) + (o x d) . (q - p), whose products are of size |p| |q| and
+# |o| |q - p| while their sum is |n| cos: in float32 the sum keeps few
+# digits when the triangle is small, the origin far or the ray grazing.
+# The walk's Möller-Trumbore works relative to a corner and does not
+# cancel.  Phase 15 shows this lane by lane: the same formula evaluated in
+# float64 meets the walk's t.  So a lane is held to the tolerance unless
+# the rounding its sums can carry (2^-24 x condition number x t) exceeds
+# PAIR_ROUNDING_MAX times the tolerance (measured: the median error is
+# about 0.1 of that estimate, the largest 1.3 times it); at least
+# PAIR_HELD_MIN_SHARE of the hit lanes must be held (measured: 98% at
+# 81,920 triangles, 74% at 327,680), and
+# every lane beyond the tolerance must be explained.  A hit on a shared
+# edge may go to either neighbour, or through to the next surface, in
+# either test (neither is watertight; the edge-function test also rejects
+# barycentrics below t_min), so lanes that name another triangle than the
+# walk are counted apart, at most PAIR_OTHER_TRIANGLE_MAX_SHARE of the hit
+# lanes (measured: 7e-5 to 9e-4).  find_hit uses the
+# sweeps' t only to order primitive families, and shade_hit recomputes it
+# from the winning triangle.
+PAIR_T_TOL = 1e-5
+PAIR_WALK_RTOL, PAIR_WALK_ATOL = 1e-3, 1e-4
+PAIR_ROUNDING_MAX = 2.0
+PAIR_HELD_MIN_SHARE = 0.7
+PAIR_OTHER_TRIANGLE_MAX_SHARE = 2e-3
+PAIR_FRAME_MEAN_RTOL = 1e-2
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
 # outside the tensor cores and HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -141,6 +196,10 @@ MT_FLOPS = 64        # triangle_mt and the running-best compare
 SPHERE_FLOPS = 38    # sphere_roots, root choice, running-best compare
 QUAD_FLOPS = 60      # the one-sided quad test
 VOLUME_FLOPS = 51    # a volume sphere's free flight (roots, log, clip)
+EDGE_FLOPS = 53      # pair_sweep.cu edge_test: 3 x 11 edge volumes, tn 6,
+#                      den 2, 1/den, t, |den| and 5 compares 7, 3 s_k/den
+PAIR_SLAB_FLOPS = 25  # chunk_slab_hit: 12 for t0/t1, 10 min/max, 3 compares
+PAIR_INV_FLOPS = 12   # pair_inv_dir, once per pair-bin row
 SHADE_FLOPS = 200    # hit point, normal, BSDF sample, roulette (about)
 NEE_FLOPS = 120      # light sample, light and lambertian pdfs, MIS (about)
 # The backward kernel replays each bounce's forward and runs its adjoint,
@@ -1187,6 +1246,522 @@ def mesh_cli_phase(pt):
     check("on cuda" in proc.stdout, "render command did not run on the card")
 
 
+@contextlib.contextmanager
+def recorded_sweep(route, calls):
+    """Keep ``(arguments, results, ray of each pair)`` of every launch of a
+    pair-sweep wrapper (``route``: "pair" or "pairbin") made inside the
+    context.  The rays come from the emission's ``_pair_rows``, which lays
+    out the rows of each launch just before it."""
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+
+    name = f"{route}_sweep"
+    sweep, pair_rows = getattr(ps, name), ps._pair_rows
+    rays = []
+
+    def laying_out(o, d, bound, ray, rows, n_rows):
+        rays.append(ray)
+        return pair_rows(o, d, bound, ray, rows, n_rows)
+
+    def recording(*args):
+        out = sweep(*args)
+        calls.append((args, out, rays.pop()))
+        return out
+
+    setattr(ps, name, recording)
+    ps._pair_rows = laying_out
+    try:
+        yield
+    finally:
+        setattr(ps, name, sweep)
+        ps._pair_rows = pair_rows
+
+
+@contextlib.contextmanager
+def pair_dispatch(route):
+    """Route find_hit's BVH search through a pair sweep (None: the BVH
+    kernel), as a test sets ``traversal.PAIR_DISPATCH``."""
+    from tpu_path_tracer_torch.kernels import traversal
+
+    before = traversal.PAIR_DISPATCH
+    traversal.PAIR_DISPATCH = route
+    try:
+        yield
+    finally:
+        traversal.PAIR_DISPATCH = before
+
+
+def pair_launch_work(torch, ps, route, args, out):
+    """What one recorded launch of a pair-sweep wrapper needed, counted from
+    its arguments: the FP32 operations of the row-triangle tests (and, for
+    the pair-bin sweep, the chunk slab tests) of its real rows, and the bytes
+    of its segments' pair rows in and results out, the segment ids, and only
+    the chunk tables (and chunk boxes) its segments read.
+
+    Which chunks a pair-bin segment sweeps depends on its rows' running
+    best, so that sweep is replayed here as ``PAIR_G`` plain pair sweeps,
+    each gated by the slab test at the running best; the replay's result is
+    held to the launch's."""
+    pair_dm, pair_o1, seg = args[0], args[1], args[2].to(torch.int64)
+    table, t_min = args[-2], args[-1]
+    n_chunks, chunk = table.shape[0], ps.TRI_CHUNK
+    real = (pair_o1[:, 3] != 0).reshape(-1, chunk)
+    if route == "pair":
+        on = (seg >= 0) & (seg < n_chunks)
+        row_tests = int((real & on[:, None]).sum()) * chunk
+        slab_tests = boxes_read = 0
+        tables_read = int(torch.unique(seg[on]).numel())
+        flops = row_tests * EDGE_FLOPS
+    else:
+        boxes = args[3]
+        on = (seg >= 0) & (seg < -(-n_chunks // ps.PAIR_G))
+        o = pair_o1[:, :3].reshape(-1, chunk, 3)
+        iv = ps.inv_dir(pair_dm[:, :3]).reshape(-1, chunk, 3)
+        t_cur = pair_dm[:, 6].clone()
+        i_cur = torch.full_like(out[1], -1)
+        swept = torch.zeros(n_chunks, dtype=torch.bool, device=seg.device)
+        tested = torch.zeros_like(swept)
+        row_tests = slab_tests = 0
+        for c in range(ps.PAIR_G):
+            cid = seg * ps.PAIR_G + c
+            live = on & (cid < n_chunks)
+            box = boxes[torch.clamp(cid, 0, n_chunks - 1)][:, None]
+            reach = ps.slab_entries(o, iv, t_cur.reshape(-1, chunk),
+                                    box[..., :3], box[..., 3:]) < 1e30
+            sweep = live & reach.any(dim=1)
+            dm = pair_dm.clone()
+            dm[:, 6] = t_cur
+            t, i = ps.pair_sweep_plain(
+                dm, pair_o1, torch.where(sweep, cid, -1).to(torch.int32),
+                table, t_min)
+            t_cur = torch.where(i >= 0, t, t_cur)
+            i_cur = torch.where(i >= 0, i, i_cur)
+            slab_tests += int((real & live[:, None]).sum())
+            row_tests += int((real & sweep[:, None]).sum()) * chunk
+            tested[cid[live]] = True
+            swept[cid[sweep]] = True
+        rows_on = on.repeat_interleave(chunk)
+        check(bool((i_cur[rows_on] == out[1][rows_on]).all())
+              and bool((t_cur[rows_on] == out[0][rows_on]).all()),
+              "pairbin: the launch differs from its replay as gated pair "
+              "sweeps")
+        tables_read, boxes_read = int(swept.sum()), int(tested.sum())
+        flops = (row_tests * EDGE_FLOPS + slab_tests * PAIR_SLAB_FLOPS
+                 + int((real & on[:, None]).sum()) * PAIR_INV_FLOPS)
+    nbytes = (int(on.sum()) * chunk * (64 + 8) + seg.shape[0] * 4
+              + tables_read * ps.TABLE_ROWS * chunk * 4 + boxes_read * 24)
+    return {"pairs": int(real.sum()), "rows": pair_dm.shape[0],
+            "segments": seg.shape[0], "row_tests": row_tests,
+            "slab_tests": slab_tests, "tables_read": tables_read,
+            "flops": flops, "bytes": nbytes}
+
+
+def sweeps_against_plain(torch, ps, route, calls):
+    """Every recorded launch of a pair-sweep kernel against its plain
+    version on the card, on the launch's own arguments, with the plain
+    version's time, what each launch served and needed
+    (:func:`pair_launch_work`) and the bound per launch (the mean of the
+    launches' bounds)."""
+    plain = {"pairbin": ps.pairbin_sweep_plain,
+             "pair": ps.pair_sweep_plain}[route]
+    same_index = bit_equal = True
+    err = plain_ms = ops_ms = bytes_ms = bound_ms = 0.0
+    served = []
+    for args, (t_k, i_k), ray in calls:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        t_p, i_p = plain(*args)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - start) * 1e3
+        same_index &= bool((i_k == i_p).all())
+        bit_equal &= bool((t_k == t_p).all())
+        err = max(err, float((t_k - t_p).abs().max()))
+        work = pair_launch_work(torch, ps, route, args, (t_k, i_k))
+        work["rays"] = int(torch.unique(ray).numel())
+        ops = work["flops"] / PEAK_FP32_FLOPS * 1e3
+        moved = work["bytes"] / PEAK_HBM_BYTES * 1e3
+        ops_ms, bytes_ms = ops_ms + ops, bytes_ms + moved
+        bound_ms += max(ops, moved)
+        served.append(work)
+    n = len(calls)
+    return {"launches": n, "same_index": same_index, "t_bit_equal": bit_equal,
+            "max_abs_err": err, "plain_ms_per_launch": plain_ms / n,
+            "bound_ms": bound_ms / n,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": sum(w["flops"] for w in served) / n,
+            "bytes": sum(w["bytes"] for w in served) / n,
+            "rays_served": [w["rays"] for w in served],
+            "pairs": [w["pairs"] for w in served],
+            "rows": [w["rows"] for w in served],
+            "segments": [w["segments"] for w in served],
+            "tables_read": [w["tables_read"] for w in served]}
+
+
+def edge_form_float64(np, o, d, a, b, c):
+    """The pair sweeps' edge-function t of rays (o, d) against triangles
+    (a, b, c), row by row, evaluated in float64 from the float32 inputs: t,
+    the condition number of its sums and ``|n . d| / |n|``, the cosine
+    between ray and normal.  The condition number is the sum of the
+    magnitudes of the products that make up n . d = sum over the edges
+    (p, q) of d . (p x q) + (o x d) . (q - p), the cross products written
+    out (the table stores p x q rounded to float32, so its own cancellation
+    counts), over |n . d|; plus the same for the numerator n . a - n . o."""
+    o, d, a, b, c = (x.astype(np.float64) for x in (o, d, a, b, c))
+
+    def cross_magnitude(p, q):
+        return (np.abs(p[:, [1, 2, 0]] * q[:, [2, 0, 1]])
+                + np.abs(p[:, [2, 0, 1]] * q[:, [1, 2, 0]]))
+
+    m, m_mag = np.cross(o, d), cross_magnitude(o, d)
+    den = mag = 0.0
+    for p, q in ((b, c), (c, a), (a, b)):
+        den = (den + (d * np.cross(p, q)).sum(axis=1)
+               + (m * (q - p)).sum(axis=1))
+        mag = (mag + (np.abs(d) * cross_magnitude(p, q)).sum(axis=1)
+               + (m_mag * np.abs(q - p)).sum(axis=1))
+    n = np.cross(b - a, c - a)
+    tn = (n * a).sum(axis=1) - (n * o).sum(axis=1)
+    tn_mag = np.abs(n * a).sum(axis=1) + np.abs(n * o).sum(axis=1)
+    cond = mag / np.abs(den) + tn_mag / np.abs(tn)
+    return tn / den, cond, np.abs(den) / np.linalg.norm(n, axis=1)
+
+
+def pair_t_against_walk(np, o, d, verts, t_e, i_e, t_w, i_w, both):
+    """The entry point's t against the BVH kernel's on the lanes both hit,
+    with the cause of every lane beyond the tolerance shown in float64.
+
+    The edge-function form of the lane's own triangle is evaluated in
+    float64 (:func:`edge_form_float64`).  A lane that names the walk's
+    triangle is *held* to rtol 1e-3 / atol 1e-4 unless the float32 rounding
+    its sums can carry, 2^-24 x condition number x t, exceeds
+    ``PAIR_ROUNDING_MAX`` times that tolerance; those lanes are
+    ill-conditioned and exempt, and are counted.  Lanes that name another
+    triangle (a hit on a shared edge, which either test may give to a
+    neighbour or pass through to the next surface) are counted apart.  For
+    the lanes beyond the tolerance the line says how many the float64 value
+    of the same formula brings back to the walk's t (the float32 evaluation
+    is the cause), how many name the walk's triangle, how many are
+    unexplained (the walk's triangle, and still off in float64), and their
+    ``|n . d| / |n|``."""
+    lanes = np.nonzero(both)[0]
+    tri = i_e[lanes]
+    t64, cond, cosine = edge_form_float64(
+        np, o[lanes], d[lanes], *(verts[k][tri] for k in range(3)))
+    te, tw = t_e[lanes].astype(np.float64), t_w[lanes].astype(np.float64)
+    tol = PAIR_WALK_ATOL + PAIR_WALK_RTOL * np.abs(tw)
+    beyond = np.abs(te - tw) > tol
+    rounding = 2.0 ** -24 * cond * np.abs(t64)
+    same = tri == i_w[lanes]
+    held = same & (rounding <= PAIR_ROUNDING_MAX * tol)
+    meets64 = np.abs(t64 - tw) <= tol
+
+    def spread(x):
+        return ([float(v) for v in np.quantile(x, [0.0, 0.5, 1.0])]
+                if x.size else [])
+
+    return {
+        "hit_lanes": int(lanes.size),
+        "t_beyond_tol": int(beyond.sum()),
+        "t_within_tol_share": float(1.0 - beyond.mean()),
+        "held_lanes": int(held.sum()),
+        "exempt_lanes": int((same & ~held).sum()),
+        "other_triangle_lanes": int((~same).sum()),
+        "other_triangle_beyond_tol": int((beyond & ~same).sum()),
+        "held_beyond_tol": int((beyond & held).sum()),
+        "beyond_float64_meets_walk": int((beyond & meets64).sum()),
+        "beyond_same_triangle": int((beyond & same).sum()),
+        "beyond_unexplained": int((beyond & same & ~meets64).sum()),
+        "beyond_cosine_min_median_max": spread(cosine[beyond]),
+        "all_cosine_min_median_max": spread(cosine),
+        "beyond_rounding_over_tol_min_median_max": spread(
+            (rounding / tol)[beyond]),
+        "err_over_rounding_max": float(
+            (np.abs(te - t64) / rounding).max()),
+        "t_rel_err_median": float(np.median(np.abs(te - tw) / np.abs(tw))),
+        "t_rel_err_p99": float(np.quantile(np.abs(te - tw) / np.abs(tw),
+                                           0.99)),
+        "index_differs_share": float((~same).mean())}
+
+
+def pair_phase(torch, pt, device, smi):
+    """Phase 15: both pair-sweep kernels against their plain versions, and
+    both entry points against the BVH kernel, on phase 10's rays at both
+    mesh sizes."""
+    import numpy as np
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+    from tpu_path_tracer_torch.kernels import traversal
+
+    t_min = pt.RenderConfig().t_min
+    entries = {"pairbin": ps.pairbin_closest_hit,
+               "pair": ps.pair_closest_hit}
+    kernel_names = {"pairbin": "pairbin_sweep_kernel",
+                    "pair": "pair_sweep_kernel"}
+    for sub in MESH_SUBDIVISIONS:
+        scene, _ = mesh_scene(pt, device, sub)
+        bvh, tris = scene.bvh, scene.triangles
+        verts = [x.cpu().numpy() for x in (tris.a, tris.b, tris.c)]
+        o_np, d_np, t0_np = traversal_rays(TRAV_RAYS, sub, 0.8, verts[0])
+        o, d, t0 = (torch.from_numpy(x).to(device)
+                    for x in (o_np, d_np, t0_np))
+        live = t0_np > 0
+
+        def bvh_call():
+            return traversal.closest_hit(o, d, bvh, tris, t_min, t0)
+
+        t_w, i_w = (x.cpu().numpy() for x in bvh_call())
+        bvh_call_ms = time_events(torch, bvh_call, 10)
+        bvh_dev, _ = profile_device_ms(torch, bvh_call, 5,
+                                       {"kernel": ["bvh_closest_hit"]})
+        for route, entry in entries.items():
+            calls = []
+            with recorded_sweep(route, calls):
+                t_e, i_e = entry(o, d, bvh, tris, t_min, t0)
+            torch.cuda.synchronize()
+            check(calls, f"{route}: the entry point launched no sweep")
+            # The kernel against its plain version, launch by launch.
+            row = sweeps_against_plain(torch, ps, route, calls)
+            n_launch = row["launches"]
+
+            # The entry point against the BVH kernel's answer.
+            t_e, i_e = t_e.cpu().numpy(), i_e.cpu().numpy()
+            hit_w, hit_e = i_w >= 0, i_e >= 0
+            mask_diff = int((hit_w != hit_e)[live].sum())
+            both = hit_w & hit_e & live
+            row.update(pair_t_against_walk(np, o_np, d_np, verts, t_e, i_e,
+                                           t_w, i_w, both))
+
+            def call():
+                entry(o, d, bvh, tris, t_min, t0)
+
+            call_ms = time_events(torch, call, 5)
+            # Kernel and emission (every other device operation of the
+            # call) from one profiled run.
+            dev_ms, rows_prof = profile_device_ms(
+                torch, call, 3, {"kernel": [kernel_names[route]]})
+            measured = bool(rows_prof)
+            row.update(
+                route=route, tris=tris.count,
+                mask_mismatches=mask_diff, live_lanes=int(live.sum()),
+                retired_all_miss=bool((i_e[~live] == -1).all()),
+                kernel_ms_per_launch=(dev_ms["kernel"] / n_launch
+                                      if measured else "not measured"),
+                kernel_ms_per_call=dev_ms["kernel"],
+                emission_device_ms_per_call=(
+                    dev_ms["all"] - dev_ms["kernel"] if measured
+                    else "not measured"),
+                device_ms_per_call=dev_ms["all"], call_ms=call_ms,
+                bvh_kernel_ms=bvh_dev["kernel"], bvh_call_ms=bvh_call_ms)
+            phase("pair_vs_plain", rays=TRAV_RAYS, card=smi, **row)
+            name = f"{route} at {tris.count} triangles"
+            check(row["same_index"],
+                  f"{name}: kernel and plain indices differ")
+            check(row["max_abs_err"] <= PAIR_T_TOL,
+                  f"{name}: kernel t off plain by {row['max_abs_err']}")
+            check(row["retired_all_miss"], f"{name}: a retired lane hit")
+            check(mask_diff == 0,
+                  f"{name}: {mask_diff} live lanes differ in the hit mask")
+            check(row["held_beyond_tol"] == 0,
+                  f"{name}: {row['held_beyond_tol']} well-conditioned lanes "
+                  f"beyond the walk's t")
+            check(row["beyond_unexplained"] == 0,
+                  f"{name}: {row['beyond_unexplained']} lanes beyond the "
+                  f"walk's t that float32 rounding does not explain")
+            check(row["other_triangle_lanes"]
+                  <= PAIR_OTHER_TRIANGLE_MAX_SHARE * row["hit_lanes"],
+                  f"{name}: {row['other_triangle_lanes']} lanes name "
+                  f"another triangle than the walk")
+            check(row["held_lanes"] >= PAIR_HELD_MIN_SHARE * row["hit_lanes"],
+                  f"{name}: only {row['held_lanes']} of {row['hit_lanes']} "
+                  f"hit lanes are held to the tolerance")
+            check(both.sum() > 0.3 * live.sum(), f"{name}: the rays miss")
+
+
+def pair_main_path_phase(torch, pt, device, smi, frames=3):
+    """Phase 16: the mesh main path with the closest-hit search routed
+    through each pair sweep.  Every launch of one frame is held against the
+    plain version on the launch's own arguments.  Returns, per kernel, the
+    launches of its route's run and the numbers of that frame's launches
+    for the kernels line."""
+    import numpy as np
+    from tpu_path_tracer_torch.integrator.render import render_frame
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+    from tpu_path_tracer_torch.kernels import traversal
+
+    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    cfg = pt.RenderConfig(**MESH_KW)
+    view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
+    n = cfg.width * cfg.height
+
+    def one_frame():
+        return render_frame(torch.zeros((n, 3), device=device), 3, True, view,
+                            scene, meta, cfg).cpu().numpy()
+
+    ref = one_frame()
+    out = {}
+    for route in ("pairbin", "pair"):
+        renderer = pt.Renderer(scene, meta, cfg,
+                               pt.Camera(eye=MESH_EYE, center=[0, 0, 0]))
+        with pair_dispatch(route):
+            torch.cuda.synchronize()
+            ps.PAIR_LAUNCHES = ps.PAIRBIN_LAUNCHES = traversal.LAUNCHES = 0
+            start = time.perf_counter()
+            fb = renderer.render_animation(frames)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = {"pairbin_sweep": ps.PAIRBIN_LAUNCHES,
+                      "pair_sweep": ps.PAIR_LAUNCHES,
+                      "bvh_closest_hit": traversal.LAUNCHES}
+            calls = []
+            with recorded_sweep(route, calls):
+                got = one_frame()
+        own = f"{route}_sweep"
+        check(calls, f"{route}: a frame launched no sweep")
+        row = sweeps_against_plain(torch, ps, route, calls)
+        fb_np = fb.cpu().numpy()
+        share = float(np.isclose(got, ref, rtol=KERNEL_TOL,
+                                 atol=KERNEL_TOL).all(axis=-1).mean())
+        mean_rel = float((np.abs(got.mean(0) - ref.mean(0))
+                          / np.abs(ref.mean(0))).max())
+        frame_launches = row.pop("launches")
+        served = {k: row.pop(k)[:16] for k in (
+            "rays_served", "pairs", "rows", "segments", "tables_read")}
+        phase("pair_main_path", route=route, tris=scene.triangles.count,
+              size=f"{cfg.width}x{cfg.height}", max_bounces=cfg.max_bounces,
+              frames=frames, launches=counts, seconds=round(seconds, 4),
+              fb_mean=fb_np.mean(0).tolist(),
+              frame_launches=frame_launches, **row, **served,
+              share_within_tol=share, tol=KERNEL_TOL,
+              mean_rel_diff=mean_rel, mean_route=got.mean(0).tolist(),
+              mean_bvh=ref.mean(0).tolist())
+        check(counts[own] > 0, f"{route}: its kernel was never launched")
+        check(all(v == 0 for k, v in counts.items() if k != own),
+              f"{route}: another traversal kernel ran: {counts}")
+        if route == "pairbin":
+            # One launch per bounce; a bounce whose rays reach no bin
+            # launches nothing.
+            check(counts[own] <= cfg.max_bounces * frames,
+                  f"pairbin: {counts[own]} launches in {frames} frames")
+        check(row["same_index"], f"{route}: kernel and plain indices differ "
+              f"on the main path's launches")
+        check(row["max_abs_err"] <= PAIR_T_TOL, f"{route}: kernel t off "
+              f"plain by {row['max_abs_err']} on the main path's launches")
+        check(np.isfinite(fb_np).all(), f"{route}: non-finite framebuffer")
+        check(mean_rel <= PAIR_FRAME_MEAN_RTOL,
+              f"{route}: frame mean {mean_rel:.4f} from the BVH route's")
+        out[own] = {"launches": counts[own], "frame_launches": frame_launches,
+                    "max_abs_err": row["max_abs_err"],
+                    "plain_ms": row["plain_ms_per_launch"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "flops": row["flops"], "bytes": row["bytes"]}
+
+    order = (None, "pairbin", "pair", "pair", "pairbin", None)
+    samples = {r: [] for r in order}
+    for route in order:
+        with pair_dispatch(route):
+            t = time_frames(torch, pt, device, scene, meta, cfg, view, 1 + 4)
+        samples[route] += t[1:]
+    kernels = {None: "bvh_closest_hit", "pairbin": "pairbin_sweep_kernel",
+               "pair": "pair_sweep_kernel"}
+    for route, t in samples.items():
+        with pair_dispatch(route):
+            dev_ms, rows = profile_device_ms(torch, one_frame, 2,
+                                             {"kernel": [kernels[route]]})
+        ms = statistics.median(t)
+        phase("pair_timing", route=route or "bvh",
+              tris=scene.triangles.count, size=f"{cfg.width}x{cfg.height}",
+              max_bounces=cfg.max_bounces, ms_per_frame=ms, ms_min=min(t),
+              ms_max=max(t), frames=len(t),
+              traversal_kernel_ms_per_frame=dev_ms["kernel"],
+              device_ms_per_frame=dev_ms["all"],
+              device_busy_share=(dev_ms["all"] / ms if rows
+                                 else "not measured"), card=smi)
+        if route:
+            k = out[f"{route}_sweep"]
+            k["ms"] = (dev_ms["kernel"] / k["frame_launches"] if rows
+                       else "not measured")
+    return out
+
+
+def user_layer_phase(torch, pt, device, frames=100, max_fps=200.0, k=3):
+    """Phase 17: the renderer's perf log and FPS cap, checkpoint and resume
+    in process, and the render command's --checkpoint / --resume."""
+    import io
+
+    import numpy as np
+    from tpu_path_tracer_torch.utils.image import read_png
+
+    scene, meta, _ = pt.builtin.reference_scene(device=device)
+    cfg = pt.RenderConfig(width=512, height=512, max_bounces=4,
+                          use_megakernel=True)
+    renderer = pt.Renderer(scene, meta, cfg, log_performance=True,
+                           max_fps=max_fps)
+    log = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        renderer.render_animation(frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    lines = log.getvalue().splitlines()
+    phase("user_layer", case="log_and_fps_cap", frames=frames,
+          max_fps=max_fps, seconds=round(seconds, 4), report=lines,
+          avg_ms=renderer.stats.avg_ms)
+    check(len(lines) == 1 and lines[0].startswith(f"frames={frames} avg="),
+          f"perf log: {lines}")
+    check(seconds >= frames / max_fps, "the FPS cap did not hold")
+
+    out_dir = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
+                           "chip_smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "resume.npz")
+    whole = pt.Renderer(scene, meta, cfg)
+    whole.render_animation(k, checkpoint_path=path, checkpoint_every=k)
+    whole.render_animation(k)
+    resumed = pt.Renderer(scene, meta, cfg)
+    resumed.load_checkpoint(path)
+    at = resumed.frame_num
+    resumed.render_animation(k)
+    diff = float((resumed.framebuffer - whole.framebuffer).abs().max())
+    phase("user_layer", case="checkpoint_resume", checkpoint_at=at,
+          frames=resumed.frame_num, max_abs_diff=diff,
+          device=str(resumed.framebuffer.device))
+    check(at == k and resumed.frame_num == whole.frame_num == 2 * k,
+          "resume: frame counts")
+    check(diff == 0.0, f"resumed framebuffer differs by {diff}")
+
+    ck = os.path.join(out_dir, "cli.npz")
+    png = os.path.join(out_dir, "cli_resumed.png")
+    for f in (ck, png):
+        if os.path.exists(f):
+            os.remove(f)
+    base = [sys.executable, "-m", "tpu_path_tracer_torch", "render",
+            "--scene", "cornell", "--width", "128", "--height", "128",
+            "--bounces", "4", "--frames", "2", "-o", png]
+    outs = []
+    start = time.perf_counter()
+    for extra in (["--checkpoint", ck], ["--resume", ck, "--log-samples"]):
+        proc = subprocess.run(base + extra, cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+        check(proc.returncode == 0, f"render {extra} failed: {proc.stderr}")
+        outs.append(proc.stdout.strip().splitlines())
+    seconds = time.perf_counter() - start
+    cornell, cornell_meta, _ = pt.builtin.cornell_box(device=device)
+    one_go = pt.Renderer(cornell, cornell_meta, pt.RenderConfig(
+        width=128, height=128, max_bounces=4),
+        pt.Camera(eye=[0.0, 0.0, 3.2], center=[0, 0, 0]))
+    one_go.render_animation(4)
+    levels = int(np.abs(read_png(png).astype(np.int32)
+                        - one_go.display().astype(np.int32)).max())
+    phase("user_layer", case="cli_checkpoint_resume",
+          seconds=round(seconds, 2), first=outs[0][-3:], second=outs[1][-4:],
+          png_max_level_diff=levels)
+    check(any("checkpoint ->" in ln for ln in outs[0]), "no checkpoint line")
+    check("resumed at frame 2" in outs[1], "the second run did not resume")
+    check("Total Samples: 4" in outs[1], "--log-samples printed no count")
+    # Two processes and this one run the same torch ops on the same card;
+    # one 8-bit level allows for a rounding at a level's edge.
+    check(levels <= 1, f"the resumed PNG is {levels} levels from 4 frames "
+          f"in one go")
+
+
 def run():
     import torch
 
@@ -1208,6 +1783,9 @@ def run():
     mesh_times = mesh_timing_phase(torch, pt, device, smi)
     mesh_train_phase(torch, pt, device)
     mesh_cli_phase(pt)
+    pair_phase(torch, pt, device, smi)
+    pair_kernels = pair_main_path_phase(torch, pt, device, smi)
+    user_layer_phase(torch, pt, device)
     ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
     fwd_bound = megakernel_bound(
         torch, pt, device, ref, ref_meta,
@@ -1219,7 +1797,10 @@ def run():
                                  backward=True)
     phase("bounds", megakernel_fwd=fwd_bound, megakernel_bwd=bwd_bound,
           bvh_closest_hit={k: trav[k] for k in ("bound_ms", "bound_by",
-                                                "flops", "bytes")})
+                                                "flops", "bytes")},
+          **{name: {k: v[k] for k in ("bound_ms", "bound_by", "flops",
+                                      "bytes")}
+             for name, v in pair_kernels.items()})
     print(json.dumps({"kernels": [
         {"name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
@@ -1242,7 +1823,17 @@ def run():
          "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
          "bound_by": trav["bound_by"], "library_ms": None,
          "main_path_ms_per_launch":
-             mesh_times["kernel_device_ms_per_launch"]}]}))
+             mesh_times["kernel_device_ms_per_launch"]}] + [
+        {"name": name, "route": "cuda", "source": PAIR_SOURCE,
+         "replaces": replaces, "launches": pair_kernels[name]["launches"],
+         "max_abs_err": pair_kernels[name]["max_abs_err"],
+         "ms": pair_kernels[name]["ms"],
+         "plain_ms": pair_kernels[name]["plain_ms"],
+         "bound_ms": pair_kernels[name]["bound_ms"],
+         "bound_by": pair_kernels[name]["bound_by"], "library_ms": None,
+         "launches_per_frame": pair_kernels[name]["frame_launches"]}
+        for name, replaces in (("pairbin_sweep", PAIRBIN_REPLACES),
+                               ("pair_sweep", PAIR_REPLACES))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

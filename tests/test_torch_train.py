@@ -384,8 +384,8 @@ def test_cli_train_runs(capsys):
 @pytest.mark.parametrize("argv", [
     ["train", "--devices", "2"],
     ["render", "--multihost"],
-    ["render", "--interactive"],
-    ["render", "--checkpoint", "ck.npz"],
+    ["render", "--devices", "2"],
+    ["grad-check", "--multihost"],
     ["bench"],
 ])
 def test_cli_unported_options_raise(argv):

@@ -1,9 +1,10 @@
 """tpu_path_tracer_torch: the path tracer on PyTorch and CUDA.
 
 A port of ``tpu_path_tracer`` (JAX/Pallas for TPU) that imports no JAX.
-Plain tensor code is PyTorch; the fused megakernel, its backward and the
-BVH traversal are hand-written CUDA for Hopper (``csrc/megakernel_fwd.cu``,
-``csrc/megakernel_bwd.cu``, ``csrc/traversal.cu``).  Meshes: OBJ files
+Plain tensor code is PyTorch; the fused megakernel, its backward, the BVH
+traversal and the ray-major pair sweeps are hand-written CUDA for Hopper
+(``csrc/megakernel_fwd.cu``, ``csrc/megakernel_bwd.cu``,
+``csrc/traversal.cu``, ``csrc/pair_sweep.cu``).  Meshes: OBJ files
 (``scene.objreader``) and ``procedural`` meshes behind the BVH builders of
 ``accel``.  Training: ``diff.params``,
 ``dist.render_dist.make_train_step`` and ``python -m tpu_path_tracer_torch

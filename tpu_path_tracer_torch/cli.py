@@ -11,8 +11,10 @@ Everything runs on the first CUDA device; without one it raises, and
 ``--device cpu`` is the only way onto the CPU.  ``--megakernel`` routes
 tracing, and training's gradients, through the CUDA megakernels (on the
 CPU, through their plain version); an OBJ mesh goes through a BVH and the
-CUDA traversal kernel.  Options whose machinery is not ported yet raise,
-naming the ROADMAP item that brings it.
+CUDA traversal kernel.  ``render`` logs, checkpoints, resumes and previews
+as the JAX command does.  What is not ported yet raises, naming the ROADMAP
+item that brings it: ``--devices`` and ``--multihost`` (item 11) and
+``bench`` (item 12).
 """
 
 from __future__ import annotations
@@ -117,19 +119,25 @@ def cmd_render(args):
     from .renderer import Renderer
 
     _check_single_device(args)
-    if args.interactive or args.checkpoint or args.resume:
-        _unported("--interactive / --checkpoint / --resume",
-                  "item 10 (preview, checkpoints)")
-    if args.log_performance or args.log_samples:
-        _unported("--log-performance / --log-samples",
-                  "item 10 (frame statistics)")
     device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args)
     r = Renderer(scene, meta, cfg, Camera(eye=args.eye or eye,
-                                          center=[0, 0, 0]))
+                                          center=[0, 0, 0]),
+                 log_performance=args.log_performance,
+                 log_count_of_samples=args.log_samples)
+    if args.resume:
+        r.load_checkpoint(args.resume)
+        print(f"resumed at frame {r.frame_num}")
+    if args.interactive:
+        from .preview import run_preview
+        run_preview(r, max_fps=args.max_fps)
+        r.save_png(args.output)
+        print(f"wrote {args.output}")
+        return
     t0 = time.time()
-    r.render_animation(args.frames)
+    r.render_animation(args.frames, checkpoint_path=args.checkpoint,
+                       checkpoint_every=args.checkpoint_every)
     _sync(device)
     dt = time.time() - t0
     n_rays = args.frames * cfg.width * cfg.height * cfg.samples_per_pixel
@@ -137,6 +145,9 @@ def cmd_render(args):
           f"= {n_rays / dt / 1e6:.1f} Mray/s on {device}")
     r.save_png(args.output)
     print(f"wrote {args.output}")
+    if args.checkpoint:
+        r.save_checkpoint(args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}")
 
 
 def cmd_bench(args):
@@ -276,7 +287,8 @@ def main(argv=None):
     pr.add_argument("--log-performance", action="store_true")
     pr.add_argument("--log-samples", action="store_true")
     pr.add_argument("--interactive", action="store_true",
-                    help="terminal orbit-camera preview")
+                    help="terminal orbit-camera preview (a/d orbit, w/s "
+                         "zoom, arrows pan, q quit)")
     pr.add_argument("--max-fps", type=float, default=0.0)
     pr.set_defaults(fn=cmd_render)
 

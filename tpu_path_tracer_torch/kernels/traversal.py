@@ -18,6 +18,10 @@ with one int64 node pointer per lane; every lane advances one node per
 iteration, finished lanes idle at the ``num_nodes`` sentinel.  The kernel
 walks the same nodes in the same order, so ties between triangles at equal
 t resolve to the same index.
+
+``PAIR_DISPATCH`` routes :func:`closest_hit` through the ray-major pair
+sweeps of ``kernels.pair_sweep`` instead, as the JAX package's
+``PAIR_DISPATCH_KMAX`` does; like it, it is off.
 """
 
 from __future__ import annotations
@@ -27,10 +31,19 @@ import ctypes
 import torch
 
 from ..core.types import FlatBVH, Triangles
-from . import intersect
+from . import intersect, pair_sweep
 
 # Launches of the CUDA traversal kernel in this process.
 LAUNCHES = 0
+
+# The route of closest_hit: None is the BVH walk (csrc/traversal.cu on the
+# card); "pairbin" and "pair" send BVH scenes through
+# pair_sweep.pairbin_closest_hit and pair_sweep.pair_closest_hit.  A module
+# constant that tests and chip_smoke.py set, not an option: the pair sweeps
+# are kept as measured alternatives (PERF.md), and the walk stays the route.
+PAIR_DISPATCH = None
+_PAIR_ROUTES = {"pairbin": pair_sweep.pairbin_closest_hit,
+                "pair": pair_sweep.pair_closest_hit}
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -177,7 +190,11 @@ def closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,
     returns (t [N], tri_index [N] int64), t = INF and index -1 on a miss.
 
     CPU tensors run the plain walk (:func:`bvh_closest_hit`); CUDA tensors
-    launch the CUDA kernel or raise."""
+    launch the CUDA kernel or raise.  With ``PAIR_DISPATCH`` set, the named
+    pair sweep answers instead, under the same rule."""
+    if PAIR_DISPATCH is not None:
+        return _PAIR_ROUTES[PAIR_DISPATCH](origin, direction, bvh, tris,
+                                           t_min, t_best0)
     device = origin.device
     if device.type == "cpu":
         return bvh_closest_hit(origin, direction, bvh, tris, t_min, t_best0,

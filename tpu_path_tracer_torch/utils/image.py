@@ -1,4 +1,4 @@
-"""Minimal PNG output (pure Python, zlib), from
+"""Minimal PNG I/O (pure Python, zlib), from
 ``tpu_path_tracer.utils.image``.  8-bit RGB, no interlacing."""
 
 from __future__ import annotations
@@ -26,3 +26,31 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Reads 8-bit RGB PNGs written by ``write_png`` (filter-0 rows only)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG file")
+    pos = 8
+    idat = b""
+    w = h = None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h, bits, ctype, *_ = struct.unpack(">IIBBBBB", body)
+            if bits != 8 or ctype != 2:
+                raise ValueError(f"{path}: only 8-bit RGB, as write_png "
+                                 f"writes it")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    stride = w * 3 + 1
+    rows = [np.frombuffer(raw[y * stride + 1:(y + 1) * stride], np.uint8)
+            for y in range(h)]
+    return np.stack(rows).reshape(h, w, 3)
