@@ -76,11 +76,19 @@ outputs written once) over the memory rate, counted from this run's inputs
 and what the paths actually did.
 
 The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+line is ``{"ok": true, "device": {...}}``.  In it the forward megakernel's
+``ms`` is the time of a whole 512x512 frame through the kernel (phase 6:
+packing, seeding, the kernel and accumulation) and its ``device_ms`` the
+kernel's own device time per frame (phase 6's profile); the backward's
+``ms`` is a train step's backward and its ``device_ms`` the kernel's own
+(phase 9).  Both megakernel rows also carry what ptxas reported at the
+build (``registers``, ``spill_bytes``, static ``smem_bytes``,
+``stack_bytes``).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -192,14 +200,27 @@ PEAK_HBM_BYTES = 3.35e12
 # and compare one operation; integer work (the PCG stream, indexing) is not
 # counted, so the bounds are lower bounds.
 SLAB_FLOPS = 31      # slab_hit: 12 for t0/t1, 6 NaN checks, 13 min/max/cmp
-MT_FLOPS = 64        # triangle_mt and the running-best compare
-SPHERE_FLOPS = 38    # sphere_roots, root choice, running-best compare
-QUAD_FLOPS = 60      # the one-sided quad test
-VOLUME_FLOPS = 51    # a volume sphere's free flight (roots, log, clip)
+MT_FLOPS = 64        # triangle_mt from the corners, running-best compare
 EDGE_FLOPS = 53      # pair_sweep.cu edge_test: 3 x 11 edge volumes, tn 6,
 #                      den 2, 1/den, t, |den| and 5 compares 7, 3 s_k/den
 PAIR_SLAB_FLOPS = 25  # chunk_slab_hit: 12 for t0/t1, 10 min/max, 3 compares
 PAIR_INV_FLOPS = 12   # pair_inv_dir, once per pair-bin row
+# The megakernels' hit search (tracer.cuh find_hit).  A block derives each
+# triangle's edges and normal, each sphere's R * R and the light's plane
+# once (prepare_scene), and a ray its a = d . d and 1 / a once per bounce,
+# so no test counts them again.  Quads and volume spheres count only what
+# their early outs leave, on the rays of the run (megakernel_bound).
+RAY_FLOPS = 6        # a = d . d and 1 / a, per lane-bounce
+RAY_LEN_FLOPS = 2    # the ray's length, per lane-bounce with volumes
+SPHERE_PASS_FLOPS = 2  # with volumes, per sphere: its draw scaled to
+#                        [0, 1), the ISOTROPIC compare of the two passes
+SPHERE_FLOPS = 29    # a solid sphere: roots 23, root choice, running best
+QUAD_CULL_FLOPS = 7  # every quad: n . d, the back-face and parallel compares
+QUAD_FLOPS = 51      # a quad the ray faces: t, alpha, beta, compares
+MT_PRE_FLOPS = 45    # triangle_mt_pre and the running-best compare
+SPAN_FLOPS = 29      # an ISOTROPIC sphere: roots 23, its span's 6
+FLIGHT_FLOPS = 7     # a span before the closest hit: length, log, compare
+EVENT_FLOPS = 3      # a flight that ends inside: t and the running best
 SHADE_FLOPS = 200    # hit point, normal, BSDF sample, roulette (about)
 NEE_FLOPS = 120      # light sample, light and lambertian pdfs, MIS (about)
 # The backward kernel replays each bounce's forward and runs its adjoint,
@@ -297,11 +318,14 @@ def build_phase():
     path = _build.build()
     _build.load()
     seconds = time.perf_counter() - t0
-    log = path.with_suffix(".log").read_text().splitlines()
+    text = path.with_suffix(".log").read_text()
+    log = text.splitlines()
     phase("build", seconds=round(seconds, 3), library=os.path.relpath(
         path, REPO), ptxas=[ln.strip()[-90:] for ln in log
                             if "Used" in ln or "spill" in ln
                             or "entry function" in ln])
+    return {name: _build.ptxas_report(text, f"{name}_kernel")
+            for name in ("megakernel_fwd", "megakernel_bwd")}
 
 
 def kernel_vs_plain(torch, pt, device, scene_fn, eye, cfg, frame=3):
@@ -501,7 +525,8 @@ def kernel_rows(prof):
 def profile_phase(torch, pt, device, frame_ms, frames=8):
     """Device time of the main path by kernel (torch.profiler), and the
     share of a frame's wall time (phase 5, unprofiled) the device is busy.
-    Reports "not measured" where the profiler records no device time."""
+    Returns the forward kernel's own device ms per frame.  Reports "not
+    measured" where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     scene, meta, _ = pt.builtin.reference_scene(device=device)
@@ -516,13 +541,18 @@ def profile_phase(torch, pt, device, frame_ms, frames=8):
 
     rows = kernel_rows(prof)
     busy_ms = sum(device_us(e) for e in rows) / 1e3 / frames
+    fwd = [e for e in rows if "megakernel_fwd" in e.key]
+    kernel_ms = (sum(device_us(e) for e in fwd) / 1e3 / frames if fwd
+                 else "not measured")
     phase("profile", frames=frames,
           device_ms_per_frame=busy_ms if rows else "not measured",
+          kernel_device_ms_per_frame=kernel_ms,
           frame_wall_ms=frame_ms,
           device_busy_share=busy_ms / frame_ms if rows else "not measured",
           top=[{"name": e.key[:60], "calls": e.count,
                 "ms_per_frame": device_us(e) / 1e3 / frames}
                for e in rows[:6]])
+    return kernel_ms
 
 
 def tent_scene(pt, device):
@@ -840,23 +870,47 @@ def bound(flops, nbytes):
 
 
 @contextlib.contextmanager
-def counted_bounces(counts):
-    """Count the live lanes of every bounce of the wavefront (its hit
-    search is told which lanes are alive): the bounces the paths took."""
+def counted_work(work, scene):
+    """Count, over every bounce of the wavefront, its live lanes, the
+    (lane, quad) pairs whose quad faces the ray, the (lane, ISOTROPIC
+    sphere) pairs whose span lies before the closest solid hit, and those
+    whose free flight ends inside it: the work the megakernels' early outs
+    leave on these paths.  The kernel also clips a span by an earlier
+    sphere's volume event, so the last two may count a few more."""
+    import torch
+
+    from tpu_path_tracer_torch.core.config import ISOTROPIC
     from tpu_path_tracer_torch.integrator import path_tracer
+    from tpu_path_tracer_torch.kernels import intersect
 
-    find = path_tracer.find_hit
+    find, volume_t = path_tracer.find_hit, intersect.volume_t
+    mats = scene.materials
+    iso = mats.mtype[scene.spheres.material_id] == ISOTROPIC
 
-    def counted(rand_state, ray, scene, meta, cfg, alive=None):
-        counts.append(ray.origin.shape[0] if alive is None
-                      else int(alive.sum()))
-        return find(rand_state, ray, scene, meta, cfg, alive=alive)
+    def counted(rand_state, ray, scene_, meta, cfg, alive=None):
+        live = (torch.ones(ray.origin.shape[0], dtype=torch.bool,
+                           device=ray.origin.device)
+                if alive is None else alive)
+        work["lanes"] += int(live.sum())
+        if scene.quads.count:
+            den = (scene.quads.normal[None] * ray.dir[:, None]).sum(-1)
+            faces = (den <= 0.0) & (den.abs() >= 1e-8) & live[:, None]
+            work["facing_quads"] += int(faces.sum())
+        return find(rand_state, ray, scene_, meta, cfg, alive=alive)
 
-    path_tracer.find_hit = counted
+    def counted_volume_t(o, d, center, radius, nid, u, t_min, t_max):
+        span = intersect.volume_interval(o, d, center, radius, t_min,
+                                         t_max)[2] & iso
+        tv = volume_t(o, d, center, radius, nid, u, t_min, t_max)
+        work["spans"] += int(span.sum())
+        work["events"] += int(((tv < intersect.INF) & iso).sum())
+        return tv
+
+    path_tracer.find_hit, intersect.volume_t = counted, counted_volume_t
     try:
         yield
     finally:
-        path_tracer.find_hit = find
+        path_tracer.find_hit, intersect.volume_t = find, volume_t
 
 
 def megakernel_bound(torch, pt, device, scene, meta, cfg, eye, backward):
@@ -870,32 +924,37 @@ def megakernel_bound(torch, pt, device, scene, meta, cfg, eye, backward):
     from tpu_path_tracer_torch.integrator.render import pixel_grid
     from tpu_path_tracer_torch.kernels import megakernel as mk
 
-    counts = []
+    work = collections.Counter()
     pix, px, py = pixel_grid(cfg.width, cfg.height, device)
     view = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
                            device=device)
-    with torch.no_grad(), counted_bounces(counts):
+    with torch.no_grad(), counted_work(work, scene):
         mk.path_trace_pixels_reference(rng.seed(pix, 1), view, px, py,
                                        scene, meta, cfg)
     n_sph = scene.spheres.count
     n_vol = (int((scene.materials.mtype[scene.spheres.material_id]
                   == ISOTROPIC).sum()) if meta.has_volumes else 0)
-    per_bounce = ((n_sph - n_vol) * SPHERE_FLOPS
-                  + scene.quads.count * QUAD_FLOPS
-                  + scene.triangles.count * MT_FLOPS
-                  + (n_sph * VOLUME_FLOPS if meta.has_volumes else 0)
+    per_bounce = (RAY_FLOPS
+                  + ((RAY_LEN_FLOPS + n_sph * SPHERE_PASS_FLOPS
+                      + n_vol * SPAN_FLOPS) if meta.has_volumes else 0)
+                  + (n_sph - n_vol) * SPHERE_FLOPS
+                  + scene.quads.count * QUAD_CULL_FLOPS
+                  + scene.triangles.count * MT_PRE_FLOPS
                   + SHADE_FLOPS
                   + (NEE_FLOPS if cfg.importance_sampling and meta.has_light
                      else 0))
-    flops = sum(counts) * per_bounce
+    flops = (work["lanes"] * per_bounce + work["facing_quads"] * QUAD_FLOPS
+             + ((work["spans"] * FLIGHT_FLOPS + work["events"] * EVENT_FLOPS)
+                if meta.has_volumes else 0))
     table_bytes = 4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
     nbytes = px.shape[0] * (3 * 4 + 3 * 4) + table_bytes
     if backward:
         flops *= BWD_FLOPS_FACTOR
         nbytes += px.shape[0] * 3 * 4 + table_bytes
     ms, by = bound(flops, nbytes)
-    return {"bound_ms": ms, "bound_by": by, "lane_bounces": sum(counts),
-            "flops": flops, "bytes": nbytes}
+    return {"bound_ms": ms, "bound_by": by, "lane_bounces": work["lanes"],
+            "facing_quads": work["facing_quads"], "spans": work["spans"],
+            "events": work["events"], "flops": flops, "bytes": nbytes}
 
 
 def mesh_scene(pt, device, subdivisions, timings=None):
@@ -1768,13 +1827,13 @@ def run():
     smi = device_phase(torch)
     import tpu_path_tracer_torch as pt
 
-    build_phase()
+    ptxas = build_phase()
     device = torch.device("cuda", 0)
     max_err = compare_phase(torch, pt, device)
     golden_phase(torch, pt, device)
     launches, frame_ms = main_path_phase(torch, pt, device)
     times = timing_phase(torch, pt, device, smi)
-    profile_phase(torch, pt, device, frame_ms)
+    fwd_device_ms = profile_phase(torch, pt, device, frame_ms)
     grad_abs, grad_rel = grad_phase(torch, pt, device)
     train_launches = train_phase(torch, pt, device)
     train_times, kernel_ms = train_timing_phase(torch, pt, device, smi)
@@ -1806,8 +1865,10 @@ def run():
          "replaces": KERNEL_REPLACES,
          "launches": train_launches["megakernel_fwd"],
          "max_abs_err": max_err, "ms": times["kernel"],
+         "device_ms": fwd_device_ms,
          "plain_ms": times["plain"], "bound_ms": fwd_bound["bound_ms"],
-         "bound_by": fwd_bound["bound_by"], "library_ms": None},
+         "bound_by": fwd_bound["bound_by"], "library_ms": None,
+         **ptxas["megakernel_fwd"]},
         {"name": "megakernel_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES,
          "launches": train_launches["megakernel_bwd"],
@@ -1816,7 +1877,7 @@ def run():
          "plain_ms": train_times["plain"]["bwd_ms"],
          "device_ms": kernel_ms["megakernel_bwd"],
          "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"],
-         "library_ms": None},
+         "library_ms": None, **ptxas["megakernel_bwd"]},
         {"name": "bvh_closest_hit", "route": "cuda", "source": TRAV_SOURCE,
          "replaces": TRAV_REPLACES, "launches": mesh_launches,
          "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],

@@ -6,7 +6,10 @@ a reason; ``python3 chip_smoke.py`` runs the same checks on the card at
 full size.
 """
 
+import ctypes
 import os
+import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -214,6 +217,132 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The forward kernel's tracer (csrc/tracer.cuh) built as plain C++ for the
+# CPU: trace_pixel is __host__ __device__ code.  This harness does per
+# pixel what the kernel does per thread, on the arguments of the C entry
+# point: copy the tables, derive their invariants (prepare_scene), trace.
+HOST_FORWARD = r"""
+#include <vector>
+#include "tracer.cuh"
+using namespace tpt;
+extern "C" void host_fwd(
+    const float* tables, int n_sph, int n_quad, int n_tri, const int* state,
+    const int* px, const int* py, float* out, int n, int spp,
+    int max_bounces, int grid_n, int use_nee, int has_volumes,
+    int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
+    float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
+    float w, float h, float sub_scale, float inv_spp) {
+  const Params p = {n_sph, n_quad, n_tri, n, spp, max_bounces, grid_n,
+                    use_nee, has_volumes, rr_start_bounce, t_min, t_max, inf,
+                    p_light, bg_r, bg_g, bg_b, aspect, fov_factor, w, h,
+                    sub_scale, inv_spp};
+  std::vector<float> scene(scene_floats(p));
+  for (int k = 0; k < table_floats(p); ++k) scene[k] = tables[k];
+  for (int k = 0; k < scene_invariants(p); ++k) {
+    prepare_scene(p, scene.data(), k);
+  }
+  const Tables<const float> S = tables_at<const float>(scene.data(), p);
+  for (int i = 0; i < n; ++i) {
+    trace_pixel(p, S, (uint32_t)state[i], (float)px[i], (float)py[i],
+                out + 3 * i);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_forward(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler (g++)")
+    csrc = pathlib.Path(mk.__file__).resolve().parent.parent / "csrc"
+    out = tmp_path_factory.mktemp("host_forward")
+    (out / "host.cpp").write_text(HOST_FORWARD)
+    # -ffp-contract=off: no a*b+c contraction, as nvcc's --fmad=false.
+    subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", str(csrc), "-o",
+                    str(out / "host.so"), str(out / "host.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(out / "host.so"))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_fwd.argtypes = [p, i, i, i] + [p] * 4 + [i] * 7 + [f] * 13
+    lib.host_fwd.restype = None
+    return lib
+
+
+# name: (scene, eye, config).  reference_spp4 samples a volume scene more
+# than once: the volume pass skips the non-ISOTROPIC spheres' roots but
+# keeps their draws, and each sample starts where the last one's stream
+# ended.
+HOST_FORWARD_CASES = {
+    "reference": (pt.builtin.reference_scene, [0.5, 0.0, 2.5],
+                  dict(max_bounces=4)),
+    "cornell_nee": (pt.builtin.cornell_box, [0, 0, 3.2],
+                    dict(max_bounces=4, importance_sampling=True)),
+    "reference_spp4": (pt.builtin.reference_scene, [0.5, 0.0, 2.5],
+                       dict(max_bounces=4, samples_per_pixel=4,
+                            importance_sampling=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_FORWARD_CASES))
+def test_forward_kernel_source_on_cpu(host_forward, name):
+    """The forward kernel's tracer, built for the CPU, against its plain
+    version (the wavefront) from the same PCG states on a 16x16 frame,
+    with chip_smoke.py phase 3's tolerance."""
+    scene_fn, eye, kw = HOST_FORWARD_CASES[name]
+    scene, meta, _ = scene_fn(device="cpu")
+    cfg = pt.RenderConfig(width=16, height=16, **kw)
+    view = torch.as_tensor(pt.Camera(eye=eye).view_matrix)
+    pix, px, py = pixel_grid(16, 16, "cpu")
+    state = trng.seed(pix, 3)
+    ref = mk.path_trace_pixels_reference(state, view, px, py, scene, meta,
+                                         cfg).numpy()
+    tables = mk.pack_tables(scene) + (view,)
+    flat, counts, st32, px32, py32 = mk._prepare(state, px, py, tables,
+                                                 scene)
+    got = torch.empty((px.shape[0], 3))
+    host_forward.host_fwd(flat.data_ptr(), *counts, st32.data_ptr(),
+                          px32.data_ptr(), py32.data_ptr(), got.data_ptr(),
+                          *mk._scalar_args(scene, meta, cfg, px.shape[0]))
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    tol = chip_smoke.KERNEL_TOL
+    share = np.isclose(got, ref, rtol=tol, atol=tol).all(axis=-1).mean()
+    assert share >= chip_smoke.KERNEL_MIN_SHARE, share
+    np.testing.assert_allclose(got.mean(0), ref.mean(0),
+                               rtol=chip_smoke.KERNEL_MEAN_RTOL, atol=1e-6)
+    assert got.max() > 0
+
+
+def test_ptxas_report_reads_registers_spills_and_smem():
+    """The build log's ptxas lines give each kernel's registers, static
+    shared memory and spills (the kernels line of chip_smoke.py)."""
+    from tpu_path_tracer_torch.kernels import _build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN1a9sweep_kernelEv' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a9sweep_kernelEv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 37 registers, used 1 barriers, 11264 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN1a10adjoint_kernelEv' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a10adjoint_kernelEv",
+        "    280 bytes stack frame, 276 bytes spill stores, 420 bytes spill "
+        "loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 280 bytes "
+        "cumulative stack size"])
+    assert _build.ptxas_report(log, "sweep_kernel") == {
+        "registers": 37, "smem_bytes": 11264, "spill_bytes": 0,
+        "stack_bytes": 0}
+    assert _build.ptxas_report(log, "adjoint_kernel") == {
+        "registers": 96, "smem_bytes": 0, "spill_bytes": 696,
+        "stack_bytes": 280}
+    with pytest.raises(ValueError, match="0 kernels"):
+        _build.ptxas_report(log, "missing_kernel")
 
 
 @pytest.mark.cuda

@@ -423,6 +423,7 @@ def test_cli_without_a_card_raises(monkeypatch):
 # point, so the hand-written adjoint is checked here and not only on the
 # card.
 HOST_ADJOINT = r"""
+#include <vector>
 #include "megakernel_bwd.cu"
 using namespace tpt;
 extern "C" void host_bwd(
@@ -437,15 +438,26 @@ extern "C" void host_bwd(
                     use_nee, has_volumes, rr_start_bounce, t_min, t_max, inf,
                     p_light, bg_r, bg_g, bg_b, aspect, fov_factor, w, h,
                     sub_scale, inv_spp};
-  const Tables<const float> S = tables_at<const float>(tables, p);
+  std::vector<float> scene(scene_floats(p));
+  for (int k = 0; k < table_floats(p); ++k) scene[k] = tables[k];
+  for (int k = 0; k < scene_invariants(p); ++k) {
+    prepare_scene(p, scene.data(), k);
+  }
+  const Tables<const float> S = tables_at<const float>(scene.data(), p);
   const Tables<float> G = tables_at<float>(gtables, p);
-  float gcam[12] = {0};
+  const Sink sink = {nullptr, G.light, G.cam, 1};
   for (int i = 0; i < n; ++i) {
     const float g[3] = {gout[3 * i], gout[3 * i + 1], gout[3 * i + 2]};
-    trace_pixel_bwd(p, S, G, (uint32_t)state[i], (float)px[i],
-                    (float)py[i], g, rec, i, gcam);
+    trace_pixel_bwd(p, S, G, sink, true, (uint32_t)state[i], (float)px[i],
+                    (float)py[i], g, rec, i);
   }
-  for (int k = 0; k < 12; ++k) G.cam[k] += gcam[k];
+}
+extern "C" long long host_bwd_smem(int n_sph, int n_quad, int n_tri) {
+  Params p = {};
+  p.n_sph = n_sph;
+  p.n_quad = n_quad;
+  p.n_tri = n_tri;
+  return (long long)bwd_smem_bytes(p);
 }
 """
 
@@ -467,6 +479,8 @@ def host_adjoint(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_bwd.argtypes = [p, i, i, i] + [p] * 6 + [i] * 7 + [f] * 13
     lib.host_bwd.restype = None
+    lib.host_bwd_smem.argtypes = [i, i, i]
+    lib.host_bwd_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -484,6 +498,12 @@ HOST_CASES = {
         lambda: pt.builtin.cornell_box(device="cpu"), [0, 0, 3.2],
         dict(max_bounces=3, samples_per_pixel=4, stratify=True,
              importance_sampling=True), ("emission", "bsdf", "quads")),
+    # Volumes sampled twice a pixel: the replayed volume pass skips the
+    # non-ISOTROPIC spheres' roots but keeps their draws.
+    "reference_volumes_spp2": (
+        lambda: pt.builtin.reference_scene(device="cpu"), [0.5, 0.0, 2.5],
+        dict(max_bounces=4, samples_per_pixel=2),
+        ("emission", "bsdf", "spheres")),
     "tent_vertices": (
         lambda: _port(*_tent_scene()[:2]) + (None,), [0.0, 0.0, 2.5],
         dict(max_bounces=2, importance_sampling=True, light_sample_prob=0.9),
@@ -534,6 +554,37 @@ def test_backward_kernel_source_on_cpu(host_adjoint, name):
     _assert_grads_close({k: v[0] for k, v in as_np.items()},
                         {k: v[1] for k, v in as_np.items()}, keys)
     assert max(np.abs(v[0]).max() for v in as_np.values()) > 0
+
+
+def test_backward_block_shared_memory(monkeypatch):
+    """The wrappers refuse a scene whose backward block would not fit in
+    the shared memory a block may use: the tables, their invariants
+    (triangle edges, R * R, the light plane), the tables' gradients and
+    128 threads' slots of 52 floats at a stride of 129."""
+    scene, _, _ = pt.builtin.reference_scene(device="cpu")
+    view = torch.as_tensor(pt.Camera(eye=[0.5, 0.0, 2.5]).view_matrix)
+    tables = mk.pack_tables(scene) + (view,)
+    n = sum(t.numel() for t in tables)
+    n_sph, n_tri = scene.spheres.count, scene.triangles.count
+    need = 4 * ((n + 9 * n_tri + n_sph + 11) + n + 52 * 129)
+    assert mk.bwd_smem_bytes(scene) == need
+    assert need < mk.MAX_SMEM_BYTES
+    pix, px, py = pixel_grid(4, 4, "cpu")
+    monkeypatch.setattr(mk, "MAX_SMEM_BYTES", need)
+    mk._prepare(trng.seed(pix, 1), px, py, tables, scene)
+    monkeypatch.setattr(mk, "MAX_SMEM_BYTES", need - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk._prepare(trng.seed(pix, 1), px, py, tables, scene)
+
+
+@pytest.mark.parametrize("name", sorted(HOST_CASES))
+def test_backward_block_shared_memory_matches_kernel(host_adjoint, name):
+    """The wrapper's count of a backward block's shared memory is the one
+    the kernel's entry point launches with (``bwd_smem_bytes`` in
+    ``csrc/megakernel_bwd.cu``, built for the CPU)."""
+    scene = HOST_CASES[name][0]()[0]
+    counts = (scene.spheres.count, scene.quads.count, scene.triangles.count)
+    assert host_adjoint.host_bwd_smem(*counts) == mk.bwd_smem_bytes(scene)
 
 
 @pytest.fixture

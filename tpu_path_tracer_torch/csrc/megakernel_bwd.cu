@@ -20,20 +20,31 @@
 //
 // Design: one thread per pixel.  For each sample the thread replays the
 // forward (tracer.cuh, the same code as the forward kernel, so the same
-// branches) and stores a record per bounce in a global scratch buffer
-// [max_bounces, REC_FIELDS, N]: the PCG state after the hit search, the ray,
-// the throughput and the winner (kind, index, t, volume uniform).  It then
-// sweeps the bounces in reverse, recomputes each bounce's intermediates
-// from its record and propagates the adjoints of (origin, direction,
-// throughput), then of the camera ray.  Table gradients accumulate in
-// dynamic shared memory of the tables' size with shared atomics (the camera
-// adjoint is first reduced across the warp with shuffles); each block
-// flushes its sums once with global atomics, so the sum order changes from
-// run to run.
+// branches) and stores a 14-word record per bounce in a global scratch
+// buffer [max_bounces, REC_FIELDS, N]: the PCG state after the hit search,
+// the ray, the throughput and the winner (kind, index, t, volume
+// uniform).  It then sweeps the bounces in reverse, recomputes each
+// bounce's intermediates from its record and propagates the adjoints of
+// (origin, direction, throughput), then of the camera ray.  The block
+// holds the scene tables, their invariants (tracer.cuh prepare_scene) and
+// the tables' gradients in shared memory, and flushes the gradients once
+// with global atomics, so the sum order changes from run to run.
 //
-// What bounds it on this card: FP32 ALU work, divergence, and the shared
-// atomics of rows that many lanes hit (the walls of a room).  The records
-// cost 56 bytes per bounce per pixel of writes and reads, coalesced.
+// What bounds it on this card, and what the design does about it (each
+// measured; PERF.md):
+//   * shared atomics to the same address: in a room most lanes of a warp
+//     hit the same wall and sample the same light.  Each thread adds its
+//     bounce's row gradients with plain stores into slots of its own in
+//     shared memory; after the bounce the warp's lanes that hit the same
+//     row sum each column (__match_any_sync) and one lane a column adds it
+//     with one atomic.  The light's and the camera's entries stay in the
+//     thread's slots over the whole pixel and are summed once a block.
+//   * occupancy: the adjoint keeps many values live.  At least 5 blocks of
+//     128 threads an SM (96 registers, some spilled) hides more latency
+//     than 166 registers at 3.
+//   * the records: 56 bytes per bounce per pixel, written and read once,
+//     coalesced; they cost about 3% of the kernel's time and stay in
+//     global memory, where they leave shared memory to the slots.
 //
 // Built without nvcc (a plain C++ compiler), this file compiles the adjoint
 // for the CPU and leaves out the kernel and its entry point.
@@ -69,20 +80,15 @@ TPT_HD uint32_t float_to_bits(float f) {
 #endif
 }
 
-TPT_HD void add_grad(float* g, float v) {
-  if (v != 0.0f) {
-#ifdef __CUDA_ARCH__
-    atomicAdd(g, v);
-#else
-    *g += v;
-#endif
-  }
+// Column col of a gradient row whose columns lie stride floats apart.
+TPT_HD void add_grad(float* g, int stride, int col, float v) {
+  g[col * stride] += v;
 }
 
-TPT_HD void add_grad3(float* g, V3 v) {
-  add_grad(g, v.x);
-  add_grad(g + 1, v.y);
-  add_grad(g + 2, v.z);
+TPT_HD void add_grad3(float* g, int stride, int col, V3 v) {
+  add_grad(g, stride, col, v.x);
+  add_grad(g, stride, col + 1, v.y);
+  add_grad(g, stride, col + 2, v.z);
 }
 
 TPT_HD void acc3(V3& a, V3 b) {
@@ -170,12 +176,14 @@ TPT_HD void root_bwd(V3 o, V3 d, const float* Sr, float sgn, float tb, V3& ob,
 
 // Adjoint of lights.quad_light_pdf on a lane whose direction ch reaches
 // the light: pdf = t^2 |ch|^2 / max(|den| / max(|ch|, 1e-12) * |u x v|,
-// 1e-12), t = (normal.q - normal.p) / den, den = normal.ch.
-TPT_HD void light_pdf_bwd(V3 hp, V3 ch, V3 lq, V3 lu, V3 lv, float pdfb,
-                          V3& hpb, V3& chb, V3& lqb, V3& lub, V3& lvb) {
-  const V3 nr = cross3(lu, lv);
-  const V3 ln = norm3(nr);
-  const float dpl = dot3(ln, lq);
+// 1e-12), t = (normal.q - normal.p) / den, den = normal.ch.  L is the
+// plane prepare_scene derived from lq, lu, lv.
+TPT_HD void light_pdf_bwd(V3 hp, V3 ch, V3 lq, V3 lu, V3 lv, const float* L,
+                          float pdfb, V3& hpb, V3& chb, V3& lqb, V3& lub,
+                          V3& lvb) {
+  const V3 nr = load3(L + L_NR);
+  const V3 ln = load3(L + L_LN);
+  const float dpl = L[L_DPLANE];
   const float den = dot3(ln, ch);
   const float num = dpl - dot3(ln, hp);
   const float tl = num / den;
@@ -184,8 +192,7 @@ TPT_HD void light_pdf_bwd(V3 hp, V3 ch, V3 lq, V3 lu, V3 lv, float pdfb,
   const float lc = sqrtf(fmaxf(q, 0.0f));
   const float lcc = fmaxf(lc, 1e-12f);
   const float cosv = fabsf(den) / lcc;
-  const float nn = dot3(nr, nr);
-  const float area = sqrtf(fmaxf(nn, 0.0f));
+  const float area = L[L_AREA];
   const float ca = cosv * area;
   const float cc = fmaxf(ca, 1e-12f);
   const float dsb = pdfb / cc;
@@ -226,11 +233,12 @@ struct Adj {
 // roulette).  On entry a holds the adjoints of the bounce's outputs (the
 // next ray and the throughput after roulette; zero when the path ends in
 // this bounce); on return, those of its inputs (o, d, thr).  g is the
-// radiance cotangent of this sample.  Table gradients go to G.
+// radiance cotangent of this sample.  The gradients of the winner's row go
+// to grow, column c at grow[c * st], those of the light to glight.
 TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
-                       const Tables<float>& G, const Hit& h, V3 o, V3 d,
-                       const float thr[3], uint32_t state_h, int bounce,
-                       const float g[3], Adj& a) {
+                       const Hit& h, V3 o, V3 d, const float thr[3],
+                       uint32_t state_h, int bounce, const float g[3],
+                       float* grow, float* glight, int st, Adj& a) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   if (h.kind == K_MISS) {
     // radiance += background * throughput.
@@ -241,11 +249,11 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     a.d = zero;
     return;
   }
-  uint32_t st = state_h;
+  uint32_t state = state_h;
   Shade s;
-  shade(p, S, h, o, d, thr, st, s);
+  shade(p, S, h, o, d, thr, state, s);
   const float* mat = s.mat;
-  float* gmat = G.sph + hit_mat_offset(p, h);
+  const int mc = hit_mat_col(h);
 
   // ---- roulette: thr'' = thr' / max(amax(thr'), 1e-12) for a survivor.
   float tpb[3] = {a.thr[0], a.thr[1], a.thr[2]};
@@ -303,8 +311,8 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     }
     const V3 lq = load3(S.light), lu = load3(S.light + 3),
              lv = load3(S.light + 6);
-    if (s.valid) light_pdf_bwd(s.hp, s.ch, lq, lu, lv, lpdfb, pb, chb, lqb,
-                               lub, lvb);
+    if (s.valid) light_pdf_bwd(s.hp, s.ch, lq, lu, lv, S.light_pre, lpdfb, pb,
+                               chb, lqb, lub, lvb);
     if (s.u_mix > p.p_light) {
       acc3(ddb, chb);
     } else {
@@ -325,14 +333,14 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     }
     sdb = ndb;
   }
-  add_grad3(G.light, lqb);
-  add_grad3(G.light + 3, lub);
-  add_grad3(G.light + 6, lvb);
+  add_grad3(glight, st, 0, lqb);
+  add_grad3(glight, st, 3, lub);
+  add_grad3(glight, st, 6, lvb);
 
   // ---- attenuation = mix(color, specular color, dsf).
   for (int k = 0; k < 3; ++k) {
-    add_grad(gmat + k, attb[k] * (1.0f - s.dsf));
-    add_grad(gmat + M_SPEC + k, attb[k] * s.dsf);
+    add_grad(grow, st, mc + k, attb[k] * (1.0f - s.dsf));
+    add_grad(grow, st, mc + M_SPEC + k, attb[k] * s.dsf);
   }
 
   // ---- the sampled direction of the hit material.
@@ -440,18 +448,17 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
   // ---- front-face emission: radiance += emission * thr.
   if (s.front) {
     for (int k = 0; k < 3; ++k) {
-      add_grad(gmat + M_EMI + k, thr[k] * g[k]);
+      add_grad(grow, st, mc + M_EMI + k, thr[k] * g[k]);
       thrb[k] += mat[M_EMI + k] * g[k];
     }
   }
-  add_grad(gmat + M_ROUGH, roughb);
-  add_grad(gmat + M_ETA, etab);
-  add_grad(gmat + M_SSTR, sstrb);
+  add_grad(grow, st, mc + M_ROUGH, roughb);
+  add_grad(grow, st, mc + M_ETA, etab);
+  add_grad(grow, st, mc + M_SSTR, sstrb);
 
   // ---- shading normal of the winner (kernels/hit.py shade_hit).
   const V3 n0b = s.front ? nb : v3(-nb.x, -nb.y, -nb.z);
   const V3 hp = s.hp;
-  float* grow = G.sph + hit_row_offset(p, h);
   const float* row = S.sph + hit_row_offset(p, h);
   // Adjoints of the winner's geometry columns: sphere or volume center
   // (geo0) and radius (geo_s); quad normal (geo1); triangle corner
@@ -476,7 +483,7 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
   }
   float tt = 0.0f, uu = 0.0f, vv = 0.0f, ww = 0.0f;
   if (h.kind == K_TRI) {
-    triangle_test(p, row, o, d, tt, uu, vv, ww);
+    triangle_test(p, S, h.idx, o, d, tt, uu, vv, ww);
     const V3 na = load3(row + 9), nbv = load3(row + 12),
              nc = load3(row + 15);
     const V3 x = v3(na.x * ww + nbv.x * uu + nc.x * vv,
@@ -502,8 +509,8 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     sphere_roots(o, d, row, r0, r1, disc);
     const bool near_ok = (r0 > p.t_min) && (r0 < p.t_max);
     root_bwd(o, d, row, near_ok ? -1.0f : 1.0f, tb, ob, db, geo0, geo_s);
-    add_grad3(grow, geo0);
-    add_grad(grow + 3, geo_s);
+    add_grad3(grow, st, 0, geo0);
+    add_grad(grow, st, 3, geo_s);
   } else if (h.kind == K_VOLUME) {
     // t = max(max(r0, t_min), 0) + nid log(max(u, 1e-12)) / |d|.
     float r0, r1, disc;
@@ -512,11 +519,11 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     const float len = sqrtf(fmaxf(q, 0.0f));
     const float lg = logf(fmaxf(h.vol_u, 1e-12f));
     const float hd = row[SPH_MAT + M_ROUGH] * lg;
-    add_grad(gmat + M_ROUGH, tb / len * lg);
+    add_grad(grow, st, mc + M_ROUGH, tb / len * lg);
     if (len > 0.0f) acc3(db, scale3(d, -tb * hd / (len * len) / len));
     if (r0 >= p.t_min) root_bwd(o, d, row, -1.0f, tb, ob, db, geo0, geo_s);
-    add_grad3(grow, geo0);
-    add_grad(grow + 3, geo_s);
+    add_grad3(grow, st, 0, geo0);
+    add_grad(grow, st, 3, geo_s);
   } else if (h.kind == K_QUAD) {
     // t = (d_plane - n.o) / (n.d) with the stored plane columns.
     const V3 nq = load3(row + 9);
@@ -528,13 +535,13 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     acc3(geo1, add3(scale3(o, -numb), scale3(d, denb)));
     acc3(ob, scale3(nq, -numb));
     acc3(db, scale3(nq, denb));
-    add_grad3(grow + 9, geo1);
-    add_grad(grow + 12, numb);
+    add_grad3(grow, st, 9, geo1);
+    add_grad(grow, st, 12, numb);
   } else {
     // Möller-Trumbore (intersect.triangle_t): t, u, v all carry gradient.
-    const V3 A = load3(row), B = load3(row + 3), C = load3(row + 6);
-    const V3 ab = sub3(B, A), ac = sub3(C, A);
-    const V3 nt = cross3(ab, ac);
+    const V3 A = load3(row);
+    const float* E = S.tri_pre + h.idx * TRI_PRE;  // b - a, c - a, ab x ac
+    const V3 ab = load3(E), ac = load3(E + 3), nt = load3(E + 6);
     const float det = -dot3(d, nt);
     const V3 ao = sub3(o, A);
     const V3 dao = cross3(ao, d);
@@ -555,13 +562,13 @@ TPT_HD void bounce_bwd(const Params& p, const Tables<const float>& S,
     acc3(abb, cross3(ac, ntb));
     acc3(acb, cross3(ntb, ab));
     acc3(ob, aob);
-    add_grad3(grow, v3(-aob.x - abb.x - acb.x, -aob.y - abb.y - acb.y,
-                       -aob.z - abb.z - acb.z));
-    add_grad3(grow + 3, abb);
-    add_grad3(grow + 6, acb);
-    add_grad3(grow + 9, geo3);
-    add_grad3(grow + 12, geo4);
-    add_grad3(grow + 15, geo5);
+    add_grad3(grow, st, 0, v3(-aob.x - abb.x - acb.x, -aob.y - abb.y - acb.y,
+                              -aob.z - abb.z - acb.z));
+    add_grad3(grow, st, 3, abb);
+    add_grad3(grow, st, 6, acb);
+    add_grad3(grow, st, 9, geo3);
+    add_grad3(grow, st, 12, geo4);
+    add_grad3(grow, st, 15, geo5);
   }
   a.o = ob;
   a.d = db;
@@ -595,48 +602,121 @@ TPT_HD void load_record(const float* rec, int b, int n, int i,
   h.vol_u = f[13];
 }
 
+// Camera gradient entries: the view matrix's first three rows.
+constexpr int CAM_GRADS = 12;
+
+// The backward kernel's block, and the slots each of its threads has in
+// shared memory: the widest row, the light and the camera.
+constexpr int BWD_THREADS = 128;
+constexpr int SLOT_FLOATS = TRI_COLS + LIGHT_COLS + CAM_GRADS;
+static_assert(TRI_COLS <= 32 && QUAD_COLS <= 32 && SPH_COLS <= 32,
+              "flush_rows gives each column of a row one lane of the warp");
+
+// Dynamic shared memory of the backward kernel's block: the scene (tables
+// and invariants), the block's table gradients and the threads' slots at a
+// stride of the block's size plus one.  The wrapper's check
+// (kernels/megakernel.py bwd_smem_bytes) counts the same, and a test built
+// for the CPU holds the two together.
+TPT_HD size_t bwd_smem_bytes(const Params& p) {
+  return sizeof(float) * ((size_t)scene_floats(p) + (size_t)table_floats(p) +
+                          (size_t)SLOT_FLOATS * (BWD_THREADS + 1));
+}
+
+// Where one thread's table gradients go.  Built by a plain C++ compiler
+// (row == nullptr, stride 1) they go straight to the gradient tables G: the
+// winner's row of G, G.light and G.cam.  The kernel gives each thread slots
+// of its own in shared memory, entry k at [k * stride] (stride: the block's
+// size plus one): the winner row's columns, summed over the warp after each
+// bounce (flush_rows), and the light's and the camera's, summed over the
+// block at the end.  Either way one thread adds with a plain +=.
+struct Sink {
+  float* row;    // the winner row's slot; nullptr: the winner's row of G
+  float* light;  // LIGHT_COLS entries
+  float* cam;    // CAM_GRADS entries
+  int stride;
+};
+
+#ifdef __CUDA_ARCH__
+// Adds the row slots of a warp's lanes to the block's gradient tables gsm
+// and zeroes them.  Lane j's slot holds column c at slots[c * stride + j];
+// key is the lane's row offset in the tables (-1: none) and cols the row's
+// width.  Lanes whose rows are the same sum each column first, so a row
+// takes one atomic per column however many lanes hit it, and the lanes of a
+// group's pass add to different columns.  Every lane of the warp calls it.
+__device__ void flush_rows(float* slots, int stride, int key, int cols,
+                           float* gsm) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  const unsigned group = __match_any_sync(full, key);
+  unsigned leaders =
+      __ballot_sync(full, key >= 0 && lane == __ffs(group) - 1);
+  while (leaders) {
+    const int l = __ffs(leaders) - 1;
+    leaders &= leaders - 1;
+    const int gkey = __shfl_sync(full, key, l);
+    const unsigned members = __shfl_sync(full, group, l);
+    const int gcols = __shfl_sync(full, cols, l);
+    if (lane < gcols) {
+      float sum = 0.0f;
+      for (unsigned m = members; m; m &= m - 1) {
+        float* e = slots + lane * stride + (__ffs(m) - 1);
+        sum += *e;
+        *e = 0.0f;
+      }
+      if (sum != 0.0f) atomicAdd(gsm + gkey + lane, sum);
+    }
+  }
+  __syncwarp();
+}
+#endif
+
 // The backward trace of pixel i: replays each sample's forward into the
 // records, then sweeps them in reverse.  gout is the pixel's radiance
-// cotangent; the camera gradient (rows 0-2 of the view matrix) goes to
-// gcam, the other table gradients to G.
+// cotangent; table gradients go to sink (and G).  The reverse sweep runs
+// max_bounces steps on every lane, live (i < p.n) or not, so the kernel's
+// warps meet in step at each flush_rows.
 TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
-                            const Tables<float>& G, uint32_t state,
-                            float pxf, float pyf, const float gout[3],
-                            float* rec, int i, float gcam[12]) {
+                            const Tables<float>& G, const Sink& sink,
+                            bool live, uint32_t state, float pxf, float pyf,
+                            const float gout[3], float* rec, int i) {
   const V3 eye = v3(S.cam[3], S.cam[7], S.cam[11]);
   const int dpb = draws_per_bounce(p);
+  const int st = sink.stride;
   const float g[3] = {gout[0] * p.inv_spp, gout[1] * p.inv_spp,
                       gout[2] * p.inv_spp};
   for (int smp = 0; smp < p.spp; ++smp) {
-    float cs, ct;
-    V3 x;
-    camera_ray(p, S.cam, smp, state, pxf, pyf, cs, ct, x);
-    V3 d = norm3(x);
-    V3 o = eye;
-    float thr[3] = {1.0f, 1.0f, 1.0f};
+    float cs = 0.0f, ct = 0.0f;
+    V3 x = v3(0.0f, 0.0f, 0.0f);
     int n_rec = 0;
-    for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
-      const uint32_t later_draws =
-          (uint32_t)(p.max_bounces - bounce - 1) * (uint32_t)dpb;
-      const Hit h = find_hit(p, S, o, d, state);
-      store_record(rec, bounce, p.n, i, state, o, d, thr, h);
-      n_rec = bounce + 1;
-      if (h.kind == K_MISS) {
-        state = pcg_skip(state, (uint32_t)tail_draws(p) + later_draws);
-        break;
-      }
-      Shade s;
-      shade(p, S, h, o, d, thr, state, s);
-      bool live = s.live;
-      if (live) {
-        for (int k = 0; k < 3; ++k) thr[k] = s.nthr[k];
-        o = s.hp;
-        d = s.nd;
-        live = roulette(p, bounce, s.u_rr, thr);
-      }
-      if (!live) {
-        state = pcg_skip(state, later_draws);
-        break;
+    if (live) {
+      camera_ray(p, S.cam, smp, state, pxf, pyf, cs, ct, x);
+      V3 d = norm3(x);
+      V3 o = eye;
+      float thr[3] = {1.0f, 1.0f, 1.0f};
+      for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
+        const uint32_t later_draws =
+            (uint32_t)(p.max_bounces - bounce - 1) * (uint32_t)dpb;
+        const Hit h = find_hit(p, S, o, d, state);
+        store_record(rec, bounce, p.n, i, state, o, d, thr, h);
+        n_rec = bounce + 1;
+        if (h.kind == K_MISS) {
+          state = pcg_skip(state, (uint32_t)tail_draws(p) + later_draws);
+          break;
+        }
+        Shade s;
+        shade(p, S, h, o, d, thr, state, s);
+        bool alive = s.live;
+        if (alive) {
+          for (int k = 0; k < 3; ++k) thr[k] = s.nthr[k];
+          o = s.hp;
+          d = s.nd;
+          alive = roulette(p, bounce, s.u_rr, thr);
+        }
+        if (!alive) {
+          state = pcg_skip(state, later_draws);
+          break;
+        }
       }
     }
 
@@ -644,24 +724,40 @@ TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
     a.o = v3(0.0f, 0.0f, 0.0f);
     a.d = a.o;
     a.thr[0] = a.thr[1] = a.thr[2] = 0.0f;
-    for (int b = n_rec - 1; b >= 0; --b) {
-      uint32_t st;
-      V3 ob, db;
-      float tb[3];
-      Hit h;
-      load_record(rec, b, p.n, i, st, ob, db, tb, h);
-      bounce_bwd(p, S, G, h, ob, db, tb, st, b, g, a);
+    for (int b = p.max_bounces - 1; b >= 0; --b) {
+      int key = -1, cols = 0;
+      if (b < n_rec) {
+        uint32_t sh;
+        V3 ob, db;
+        float tb[3];
+        Hit h;
+        load_record(rec, b, p.n, i, sh, ob, db, tb, h);
+        float* grow = sink.row ? sink.row : G.sph + hit_row_offset(p, h);
+        bounce_bwd(p, S, h, ob, db, tb, sh, b, g, grow, sink.light, st, a);
+        if (h.kind != K_MISS) {
+          key = hit_row_offset(p, h);
+          cols = hit_cols(h);
+        }
+      }
+#ifdef __CUDA_ARCH__
+      flush_rows(sink.row - (threadIdx.x & 31), st, key, cols, G.sph);
+#else
+      (void)key;
+      (void)cols;
+#endif
     }
 
-    // Camera ray: o = eye, d = normalize(s B0 + t B1 - f B2).
-    const V3 xb = normalize_bwd(x, a.d);
-    const float xbs[3] = {xb.x, xb.y, xb.z};
-    const float obs[3] = {a.o.x, a.o.y, a.o.z};
-    for (int r = 0; r < 3; ++r) {
-      gcam[4 * r + 0] += cs * xbs[r];
-      gcam[4 * r + 1] += ct * xbs[r];
-      gcam[4 * r + 2] += -p.fov_factor * xbs[r];
-      gcam[4 * r + 3] += obs[r];
+    if (live) {
+      // Camera ray: o = eye, d = normalize(s B0 + t B1 - f B2).
+      const V3 xb = normalize_bwd(x, a.d);
+      const float xbs[3] = {xb.x, xb.y, xb.z};
+      const float obs[3] = {a.o.x, a.o.y, a.o.z};
+      for (int r = 0; r < 3; ++r) {
+        add_grad(sink.cam, st, 4 * r + 0, cs * xbs[r]);
+        add_grad(sink.cam, st, 4 * r + 1, ct * xbs[r]);
+        add_grad(sink.cam, st, 4 * r + 2, -p.fov_factor * xbs[r]);
+        add_grad(sink.cam, st, 4 * r + 3, obs[r]);
+      }
     }
   }
 }
@@ -674,7 +770,10 @@ namespace {
 
 using namespace tpt;
 
-__global__ void __launch_bounds__(128)
+// At least 5 blocks an SM: 96 registers, and ptxas spills some of the
+// adjoint's state; measured faster than 166 registers at 3 blocks, 128 at
+// 4 or 80 at 6 (PERF.md).
+__global__ void __launch_bounds__(BWD_THREADS, 5)
 megakernel_bwd_kernel(const float* __restrict__ tables,
                       const int* __restrict__ state_in,
                       const int* __restrict__ px_in,
@@ -682,36 +781,60 @@ megakernel_bwd_kernel(const float* __restrict__ tables,
                       const float* __restrict__ gout,
                       float* __restrict__ rec, float* __restrict__ gtables,
                       Params p) {
+  // Shared memory: the scene (tables and invariants), the block's table
+  // gradients, then the threads' slots.
   extern __shared__ float smem[];
   const int n_floats = table_floats(p);
-  float* gsm = smem + n_floats;
-  for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
+  float* gsm = smem + scene_floats(p);
+  float* slots = gsm + n_floats;
+  // Slot entry k of thread t at slots[k * ss + t]: the odd stride puts the
+  // entries flush_rows reads at once (lanes on columns) in distinct banks.
+  const int nt = blockDim.x, tid = threadIdx.x, ss = nt + 1;
+  for (int k = tid; k < n_floats; k += nt) {
     smem[k] = tables[k];
     gsm[k] = 0.0f;
+  }
+  for (int k = 0; k < SLOT_FLOATS; ++k) slots[k * ss + tid] = 0.0f;
+  __syncthreads();
+  for (int k = tid; k < scene_invariants(p); k += nt) {
+    prepare_scene(p, smem, k);
   }
   __syncthreads();
   const Tables<const float> S = tables_at<const float>(smem, p);
   const Tables<float> G = tables_at<float>(gsm, p);
+  Sink sink;
+  sink.row = slots + tid;
+  sink.light = slots + TRI_COLS * ss + tid;
+  sink.cam = slots + (TRI_COLS + LIGHT_COLS) * ss + tid;
+  sink.stride = ss;
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float gcam[12];
-  for (int k = 0; k < 12; ++k) gcam[k] = 0.0f;
-  if (i < p.n) {
-    const float g[3] = {gout[3 * i], gout[3 * i + 1], gout[3 * i + 2]};
-    trace_pixel_bwd(p, S, G, (uint32_t)state_in[i], (float)px_in[i],
-                    (float)py_in[i], g, rec, i, gcam);
+  const int i = blockIdx.x * nt + tid;
+  const bool live = i < p.n;
+  float g[3] = {0.0f, 0.0f, 0.0f};
+  uint32_t state = 0u;
+  float pxf = 0.0f, pyf = 0.0f;
+  if (live) {
+    for (int k = 0; k < 3; ++k) g[k] = gout[3 * i + k];
+    state = (uint32_t)state_in[i];
+    pxf = (float)px_in[i];
+    pyf = (float)py_in[i];
   }
-  // Every thread writes all 12 camera entries: reduce across the warp
-  // first (blockDim is a multiple of 32, so every lane is present).
-  for (int k = 0; k < 12; ++k) {
-    float v = gcam[k];
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
+  trace_pixel_bwd(p, S, G, sink, live, state, pxf, pyf, g, rec, i);
+  __syncthreads();
+  // The light's and the camera's entries: one thread sums each over the
+  // block's slots.
+  if (tid < LIGHT_COLS + CAM_GRADS) {
+    const float* src = slots + (TRI_COLS + tid) * ss;
+    float sum = 0.0f;
+    for (int j = 0; j < nt; ++j) sum += src[j];
+    if (tid < LIGHT_COLS) {
+      G.light[tid] += sum;
+    } else {
+      G.cam[tid - LIGHT_COLS] += sum;
     }
-    if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(G.cam + k, v);
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
+  for (int k = tid; k < n_floats; k += nt) {
     const float v = gsm[k];
     if (v != 0.0f) atomicAdd(gtables + k, v);
   }
@@ -721,9 +844,9 @@ megakernel_bwd_kernel(const float* __restrict__ tables,
 
 // C entry point, bound with ctypes (kernels/megakernel.py).  ``tables`` is
 // the flat table buffer of the forward; ``gout`` the radiance cotangent
-// [n, 3]; ``rec`` scratch of max_bounces * 14 * n floats; ``gtables`` the
-// zeroed gradient buffer, the tables' size, to which the kernel adds.
-// Returns cudaGetLastError() of the launch.
+// [n, 3]; ``rec`` scratch of max_bounces * REC_FIELDS * n floats;
+// ``gtables`` the zeroed gradient buffer, the tables' size, to which the
+// kernel adds.  Returns cudaGetLastError() of the launch.
 extern "C" int tpt_megakernel_bwd(
     const float* tables, int n_sph, int n_quad, int n_tri,
     const int* state, const int* px, const int* py, const float* gout,
@@ -739,16 +862,15 @@ extern "C" int tpt_megakernel_bwd(
                     p_light, bg_r,       bg_g,    bg_b,    aspect,
                     fov_factor,          w,       h,       sub_scale,
                     inv_spp};
-  const size_t smem_bytes = 2 * sizeof(float) * (size_t)table_floats(p);
+  const size_t smem_bytes = bwd_smem_bytes(p);
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         megakernel_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  megakernel_bwd_kernel<<<blocks, threads, smem_bytes,
+  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
+  megakernel_bwd_kernel<<<blocks, BWD_THREADS, smem_bytes,
                           (cudaStream_t)stream>>>(tables, state, px, py, gout,
                                                   rec, gtables, p);
   return (int)cudaGetLastError();

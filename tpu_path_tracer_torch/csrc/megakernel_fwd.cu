@@ -9,14 +9,23 @@
 // What bounds it on this card: FP32 ALU work and branch divergence.  Global
 // memory traffic is 12 bytes in (PCG state, px, py) and 12 bytes out (rgb)
 // per pixel; everything else lives in registers.  The design answers that:
-//   * the scene tables (about 3.7 KB for the full reference scene) are
-//     copied once per block into dynamic shared memory; every thread of a
-//     warp reads the same primitive in step, so the reads broadcast;
+//   * the scene tables (about 3.8 KB for the full reference scene) are
+//     copied once per block into dynamic shared memory, followed by what
+//     every test would otherwise derive again (tracer.cuh prepare_scene:
+//     triangle edges and normal, R * R, the light plane); every thread of
+//     a warp reads the same primitive in step, so the reads broadcast;
+//   * the hit search derives a = d . d and 1 / a once per ray for all its
+//     sphere tests; the volume pass tests only ISOTROPIC spheres (each
+//     sphere still draws its uniform), and a quad or volume test that has
+//     failed skips its division and logarithm;
 //   * a lane whose path ends leaves the bounce loop at once instead of
 //     idling through masked work, and jumps its PCG state ahead by the
 //     draws it would have made (LCG jump-ahead, O(log k));
 //   * only the BSDF of the hit material is evaluated; the other branches'
 //     uniforms are still drawn, so the stream stays the wavefront's.
+// Each of these runs the same operations on the same operands as the
+// kernel of commit ae782d5 did, so the radiance is equal to its bit for
+// bit (PERF.md).
 
 #include "tracer.cuh"
 
@@ -24,6 +33,8 @@ namespace {
 
 using namespace tpt;
 
+// ptxas fits the kernel in 64 registers (8 blocks of 128 threads an SM);
+// budgets for 6 blocks (80 registers) or 4 (89) measured slower (PERF.md).
 __global__ void __launch_bounds__(128)
 megakernel_fwd_kernel(const float* __restrict__ tables,
                       const int* __restrict__ state_in,
@@ -34,6 +45,10 @@ megakernel_fwd_kernel(const float* __restrict__ tables,
   const int n_floats = table_floats(p);
   for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
     smem[k] = tables[k];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < scene_invariants(p); k += blockDim.x) {
+    prepare_scene(p, smem, k);
   }
   __syncthreads();
   const Tables<const float> S = tables_at<const float>(smem, p);
@@ -68,7 +83,7 @@ extern "C" int tpt_megakernel_fwd(
                     p_light, bg_r,       bg_g,    bg_b,    aspect,
                     fov_factor,          w,       h,       sub_scale,
                     inv_spp};
-  const size_t smem_bytes = sizeof(float) * (size_t)table_floats(p);
+  const size_t smem_bytes = sizeof(float) * (size_t)scene_floats(p);
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         megakernel_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

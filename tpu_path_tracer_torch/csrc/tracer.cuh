@@ -72,7 +72,13 @@ struct Params {
   float aspect, fov_factor, w, h, sub_scale, inv_spp;
 };
 
-// The packed scene tables, in the order of the flat buffer.
+// The packed scene tables, in the order of the flat buffer, and the
+// invariants the kernels derive from them once per block (prepare_scene):
+// each triangle's edges ab, ac and normal ab x ac, each sphere's R * R and
+// the light quad's plane (light_pre), with the expressions the tests had
+// when they computed them per ray, so every result keeps its bits.  Only a
+// scene's tables carry invariants; a gradient buffer of the tables' layout
+// leaves those pointers unused.
 template <typename T>
 struct Tables {
   T* sph;
@@ -80,11 +86,25 @@ struct Tables {
   T* tri;
   T* light;
   T* cam;
+  T* tri_pre;    // [n_tri, TRI_PRE]: ab3 ac3 nt3
+  T* sph_rr;     // [n_sph]: R * R
+  T* light_pre;  // [LIGHT_PRE]
 };
+
+constexpr int TRI_PRE = 9;
+// Light plane: nr = u x v (3), ln = normalize(nr) (3), ln . q,
+// nr / (nr . nr) (3), |nr|.
+constexpr int LIGHT_PRE = 11;
+constexpr int L_NR = 0, L_LN = 3, L_DPLANE = 6, L_W = 7, L_AREA = 10;
 
 TPT_HD int table_floats(const Params& p) {
   return p.n_sph * SPH_COLS + p.n_quad * QUAD_COLS + p.n_tri * TRI_COLS +
          LIGHT_COLS + CAM_COLS;
+}
+
+// Floats of the tables followed by their invariants.
+TPT_HD int scene_floats(const Params& p) {
+  return table_floats(p) + p.n_tri * TRI_PRE + p.n_sph + LIGHT_PRE;
 }
 
 template <typename T>
@@ -95,6 +115,9 @@ TPT_HD Tables<T> tables_at(T* base, const Params& p) {
   t.tri = t.quad + p.n_quad * QUAD_COLS;
   t.light = t.tri + p.n_tri * TRI_COLS;
   t.cam = t.light + LIGHT_COLS;
+  t.tri_pre = t.cam + CAM_COLS;
+  t.sph_rr = t.tri_pre + p.n_tri * TRI_PRE;
+  t.light_pre = t.sph_rr + p.n_sph;
   return t;
 }
 
@@ -184,32 +207,48 @@ TPT_HD int draws_per_bounce(const Params& p) {
   return (p.has_volumes ? p.n_sph : 0) + tail_draws(p);
 }
 
-// Both roots of ray/sphere and the discriminant (intersect.sphere_roots).
-TPT_HD void sphere_roots(V3 o, V3 d, const float* S, float& r0, float& r1,
-                         float& disc) {
+// Both roots of ray/sphere and the discriminant (intersect.sphere_roots),
+// from the ray's a = d . d and 1 / a and the sphere's R * R: the hit search
+// derives the first two once per ray, the tables the third once per block.
+TPT_HD void sphere_roots_pre(V3 o, V3 d, float a, float inv_a, const float* S,
+                             float rr, float& r0, float& r1, float& disc) {
   V3 oc = v3(o.x - S[0], o.y - S[1], o.z - S[2]);
-  float a = dot3(d, d);
   float half_b = dot3(d, oc);
-  float c = dot3(oc, oc) - S[3] * S[3];
+  float c = dot3(oc, oc) - rr;
   disc = half_b * half_b - a * c;
   float sq = safe_sqrt(disc);
-  float inv_a = 1.0f / a;
   r0 = (-half_b - sq) * inv_a;
   r1 = (-half_b + sq) * inv_a;
 }
 
-// Möller-Trumbore with the reference's t_min barycentric guards and the
-// absolute DET_EPS parallel cull (kernels/intersect.py triangle_t), the
-// hit accepted for t in [t_min, t_max].  T points at the corners a, b, c
-// (9 floats).  Returns whether the ray hits; tt, uu, vv, ww are the
-// distance and barycentrics.
-TPT_HD bool triangle_mt(const float* T, V3 o, V3 d, float t_min, float t_max,
-                        float& tt, float& uu, float& vv, float& ww) {
+TPT_HD void sphere_roots(V3 o, V3 d, const float* S, float& r0, float& r1,
+                         float& disc) {
+  const float a = dot3(d, d);
+  sphere_roots_pre(o, d, a, 1.0f / a, S, S[3] * S[3], r0, r1, disc);
+}
+
+// The edges ab, ac and the normal ab x ac of the triangle whose corners
+// a, b, c (9 floats) T points at, into E (TRI_PRE floats).
+TPT_HD void triangle_edges(const float* T, float* E) {
   const V3 a = load3(T), b = load3(T + 3), c = load3(T + 6);
   const V3 ab = v3(b.x - a.x, b.y - a.y, b.z - a.z);
   const V3 ac = v3(c.x - a.x, c.y - a.y, c.z - a.z);
   const V3 nt = v3(ab.y * ac.z - ab.z * ac.y, ab.z * ac.x - ab.x * ac.z,
                    ab.x * ac.y - ab.y * ac.x);
+  const float e[TRI_PRE] = {ab.x, ab.y, ab.z, ac.x, ac.y, ac.z,
+                            nt.x, nt.y, nt.z};
+  for (int k = 0; k < TRI_PRE; ++k) E[k] = e[k];
+}
+
+// Möller-Trumbore with the reference's t_min barycentric guards and the
+// absolute DET_EPS parallel cull (kernels/intersect.py triangle_t), the
+// hit accepted for t in [t_min, t_max], from the first corner a and the
+// triangle's triangle_edges E.  Returns whether the ray hits; tt, uu, vv,
+// ww are the distance and barycentrics.
+TPT_HD bool triangle_mt_pre(V3 a, const float* E, V3 o, V3 d, float t_min,
+                            float t_max, float& tt, float& uu, float& vv,
+                            float& ww) {
+  const V3 ab = load3(E), ac = load3(E + 3), nt = load3(E + 6);
   const float det = -(d.x * nt.x + d.y * nt.y + d.z * nt.z);
   const V3 ao = v3(o.x - a.x, o.y - a.y, o.z - a.z);
   const V3 dao = cross3(ao, d);
@@ -223,11 +262,52 @@ TPT_HD bool triangle_mt(const float* T, V3 o, V3 d, float t_min, float t_max,
          (vv >= t_min) && (ww >= t_min);
 }
 
-// The megakernel's triangle test: a row of the packed triangle table,
-// bounded by the scene's t range.
-TPT_HD bool triangle_test(const Params& p, const float* T, V3 o, V3 d,
-                          float& tt, float& uu, float& vv, float& ww) {
-  return triangle_mt(T, o, d, p.t_min, p.t_max, tt, uu, vv, ww);
+// The same from the corners alone (the traversal kernel's test).
+TPT_HD bool triangle_mt(const float* T, V3 o, V3 d, float t_min, float t_max,
+                        float& tt, float& uu, float& vv, float& ww) {
+  float E[TRI_PRE];
+  triangle_edges(T, E);
+  return triangle_mt_pre(load3(T), E, o, d, t_min, t_max, tt, uu, vv, ww);
+}
+
+// The megakernel's test of triangle k of the packed table, bounded by the
+// scene's t range.
+TPT_HD bool triangle_test(const Params& p, const Tables<const float>& S,
+                          int k, V3 o, V3 d, float& tt, float& uu, float& vv,
+                          float& ww) {
+  return triangle_mt_pre(load3(S.tri + k * TRI_COLS), S.tri_pre + k * TRI_PRE,
+                         o, d, p.t_min, p.t_max, tt, uu, vv, ww);
+}
+
+// Invariant k of prepare_scene's list: triangles, spheres, then the light.
+TPT_HD int scene_invariants(const Params& p) {
+  return p.n_tri + p.n_sph + 1;
+}
+
+// Writes invariant k (k < scene_invariants(p)) of the tables at base into
+// the space after them.  The kernels split k over a block's threads.
+TPT_HD void prepare_scene(const Params& p, float* base, int k) {
+  const Tables<float> S = tables_at<float>(base, p);
+  if (k < p.n_tri) {
+    triangle_edges(S.tri + k * TRI_COLS, S.tri_pre + k * TRI_PRE);
+    return;
+  }
+  k -= p.n_tri;
+  if (k < p.n_sph) {
+    const float R = S.sph[k * SPH_COLS + 3];
+    S.sph_rr[k] = R * R;
+    return;
+  }
+  // quad_light_pdf's plane (importanceSampling.wgsl:88-125, lights.py).
+  const V3 lq = load3(S.light), lu = load3(S.light + 3),
+           lv = load3(S.light + 6);
+  const V3 nr = cross3(lu, lv);
+  const V3 ln = norm3(nr);
+  const float nn = dot3(nr, nr);
+  const float L[LIGHT_PRE] = {nr.x, nr.y, nr.z, ln.x, ln.y, ln.z,
+                              dot3(ln, lq), nr.x / nn, nr.y / nn, nr.z / nn,
+                              sqrtf(fmaxf(nn, 0.0f))};
+  for (int j = 0; j < LIGHT_PRE; ++j) S.light_pre[j] = L[j];
 }
 
 // The winner of one hit search.
@@ -250,13 +330,14 @@ TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
   h.kind = K_MISS;
   h.idx = 0;
   h.vol_u = 0.0f;
+  const float a = dot3(d, d), inv_a = 1.0f / a;
 
   for (int k = 0; k < p.n_sph; ++k) {
     const float* Sr = S.sph + k * SPH_COLS;
     // Solid pass skips ISOTROPIC spheres (hitRay.wgsl:8-24).
     if (p.has_volumes && Sr[SPH_MAT + M_TYPE] == ISOTROPIC) continue;
     float r0, r1, disc;
-    sphere_roots(o, d, Sr, r0, r1, disc);
+    sphere_roots_pre(o, d, a, inv_a, Sr, S.sph_rr[k], r0, r1, disc);
     const bool near_ok = (r0 > t_min) && (r0 < t_max);
     const float root = near_ok ? r0 : r1;
     const bool ok = (disc >= 0.0f) && (root > t_min) && (root < t_max);
@@ -274,13 +355,14 @@ TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
     const V3 q = load3(Q), u = load3(Q + 3), v = load3(Q + 6);
     const V3 n = load3(Q + 9), wv = load3(Q + 13);
     const float denom = n.x * d.x + n.y * d.y + n.z * d.z;
+    // A back face or a parallel ray misses: no division for it.
+    if (!((denom <= 0.0f) && (fabsf(denom) >= 1e-8f))) continue;
     const float tq = (Q[12] - (n.x * o.x + n.y * o.y + n.z * o.z)) / denom;
     const V3 rel = v3(o.x + tq * d.x - q.x, o.y + tq * d.y - q.y,
                       o.z + tq * d.z - q.z);
     const float alpha = dot3(wv, cross3(rel, v));
     const float beta = dot3(wv, cross3(u, rel));
-    const bool ok = (denom <= 0.0f) && (fabsf(denom) >= 1e-8f) &&
-                    (tq > t_min) && (tq < t_max) && (alpha >= 0.0f) &&
+    const bool ok = (tq > t_min) && (tq < t_max) && (alpha >= 0.0f) &&
                     (alpha <= 1.0f) && (beta >= 0.0f) && (beta <= 1.0f);
     const float tqq = ok ? tq : inf;
     if (tqq < h.t) {
@@ -292,8 +374,7 @@ TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
 
   for (int k = 0; k < p.n_tri; ++k) {
     float tt, uu, vv, ww;
-    const bool okt = triangle_test(p, S.tri + k * TRI_COLS, o, d, tt, uu, vv,
-                                   ww);
+    const bool okt = triangle_test(p, S, k, o, d, tt, uu, vv, ww);
     const float ttt = okt ? tt : inf;
     if (ttt < h.t) {
       h.t = ttt;
@@ -303,24 +384,26 @@ TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
   }
 
   if (p.has_volumes) {
-    const float ray_len = sqrtf(fmaxf(dot3(d, d), 1e-20f));
+    const float ray_len = sqrtf(fmaxf(a, 1e-20f));
     for (int k = 0; k < p.n_sph; ++k) {
+      // Every sphere draws its uniform, in sphere order; only an
+      // ISOTROPIC one can place an event, so only those test the ray.
       const float uv = pcg(state);
       const float* Sr = S.sph + k * SPH_COLS;
+      if (Sr[SPH_MAT + M_TYPE] != ISOTROPIC) continue;
       float r0, r1, disc;
-      sphere_roots(o, d, Sr, r0, r1, disc);
+      sphere_roots_pre(o, d, a, inv_a, Sr, S.sph_rr[k], r0, r1, disc);
       bool ok = (disc >= 0.0f) && (r1 > r0 + 0.0001f);
       float rec1 = fmaxf(r0, t_min);
       const float rec2 = fminf(r1, h.t);
       ok = ok && (rec1 < rec2);
+      if (!ok) continue;  // no span of the sphere before the closest hit
       rec1 = fmaxf(rec1, 0.0f);
       const float dist_inside = (rec2 - rec1) * ray_len;
       // neg_inv_density rides the roughness channel.
       const float hit_dist = Sr[SPH_MAT + M_ROUGH] * logf(fmaxf(uv, 1e-12f));
-      ok = ok && (hit_dist <= dist_inside);
-      float tv = rec1 + hit_dist / ray_len;
-      tv = ok ? tv : inf;
-      if (Sr[SPH_MAT + M_TYPE] != ISOTROPIC) tv = inf;
+      if (!(hit_dist <= dist_inside)) continue;
+      const float tv = rec1 + hit_dist / ray_len;
       if (tv < h.t) {
         h.t = tv;
         h.kind = K_VOLUME;
@@ -346,11 +429,18 @@ TPT_HD int hit_row_offset(const Params& p, const Hit& h) {
   }
 }
 
+// Where the material starts in the winner's row, and the row's width.
+TPT_HD int hit_mat_col(const Hit& h) {
+  return (h.kind == K_QUAD) ? QUAD_MAT : (h.kind == K_TRI) ? TRI_MAT : SPH_MAT;
+}
+
+TPT_HD int hit_cols(const Hit& h) {
+  return (h.kind == K_QUAD) ? QUAD_COLS : (h.kind == K_TRI) ? TRI_COLS
+                                                            : SPH_COLS;
+}
+
 TPT_HD int hit_mat_offset(const Params& p, const Hit& h) {
-  const int mat = (h.kind == K_QUAD) ? QUAD_MAT
-                  : (h.kind == K_TRI) ? TRI_MAT
-                                      : SPH_MAT;
-  return hit_row_offset(p, h) + mat;
+  return hit_row_offset(p, h) + hit_mat_col(h);
 }
 
 // Everything one bounce of a hit lane computes after its hit search
@@ -398,7 +488,7 @@ TPT_HD V3 hit_normal(const Params& p, const Tables<const float>& S,
     // Smooth barycentric shading normal (common.wgsl:230).
     const float* T = S.tri + h.idx * TRI_COLS;
     float tt, uu, vv, ww;
-    triangle_test(p, T, o, d, tt, uu, vv, ww);
+    triangle_test(p, S, h.idx, o, d, tt, uu, vv, ww);
     return norm3(v3(T[9] * ww + T[12] * uu + T[15] * vv,
                     T[10] * ww + T[13] * uu + T[16] * vv,
                     T[11] * ww + T[14] * uu + T[17] * vv));
@@ -545,12 +635,11 @@ TPT_HD void shade(const Params& p, const Tables<const float>& S, const Hit& h,
       s.ch = ch;
       // lambertian_pdf against the shading normal (bsdf.py).
       const float lam_pdf = fmaxf(dot3(norm3(ch), norm3(n)) / PI_F, 0.0f);
-      // quad_light_pdf (importanceSampling.wgsl:88-125, lights.py).
-      const V3 nr = cross3(lu, lv);
-      const V3 ln = norm3(nr);
-      const float d_plane = dot3(ln, lq);
-      const float nn = dot3(nr, nr);
-      const V3 lw = v3(nr.x / nn, nr.y / nn, nr.z / nn);
+      // quad_light_pdf, on the plane prepare_scene derived.
+      const float* L = S.light_pre;
+      const V3 ln = load3(L + L_LN);
+      const float d_plane = L[L_DPLANE];
+      const V3 lw = load3(L + L_W);
       const float denom = dot3(ln, ch);
       const bool grazing = fabsf(denom) < 1e-8f;
       const float tl = (d_plane - dot3(ln, hp)) / (grazing ? 1.0f : denom);
@@ -564,7 +653,7 @@ TPT_HD void shade(const Params& p, const Tables<const float>& S, const Hit& h,
       const float dist_sq = tl * tl * dot3(ch, ch);
       const float cosine =
           fabsf(denom) / fmaxf(sqrtf(fmaxf(dot3(ch, ch), 0.0f)), 1e-12f);
-      const float area = sqrtf(fmaxf(nn, 0.0f));
+      const float area = L[L_AREA];
       const float l_pdf =
           s.valid ? dist_sq / fmaxf(cosine * area, 1e-12f) : MIN_FLOAT;
       const float pdf = p.p_light * l_pdf + (1.0f - p.p_light) * lam_pdf;

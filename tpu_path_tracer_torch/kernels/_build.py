@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,23 +43,24 @@ def nvcc_path() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the sources if this exact build is missing; returns the
-    library's path.  A failed build raises with nvcc's output."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    headers = sorted(CSRC_DIR.glob("*.cuh"))
+def build(csrc_dir: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources of ``csrc_dir`` into ``build_dir`` if this exact
+    build is missing there; returns the library's path.  A failed build
+    raises with nvcc's output."""
+    sources = sorted(csrc_dir.glob("*.cu"))
+    headers = sorted(csrc_dir.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + headers:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libtpt_kernels_{digest.hexdigest()[:16]}.so"
+    lib_path = build_dir / f"libtpt_kernels_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     stem = f"{lib_path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
-    tmp = BUILD_DIR / f"{stem}.so.tmp"
+    objects = [build_dir / f"{stem}.{src.stem}.o" for src in sources]
+    tmp = build_dir / f"{stem}.so.tmp"
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -90,3 +92,36 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def ptxas_report(log: str, name: str) -> dict:
+    """What ``-Xptxas -v`` says in a build log of the one kernel whose
+    mangled name holds ``name``: ``{"registers", "smem_bytes" (static),
+    "spill_bytes" (stores plus loads), "stack_bytes"}``."""
+    entry, props, out = None, None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "smem_bytes": 0,
+                          "spill_bytes": 0, "stack_bytes": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props]["stack_bytes"] = int(m.group(1))
+            out[props]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    found = [v for k, v in out.items() if name in k]
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} kernels named {name} in the log")
+    return found[0]

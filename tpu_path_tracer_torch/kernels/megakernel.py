@@ -63,6 +63,29 @@ BWD_LAUNCHES = 0
 
 # Words per bounce record of the backward's scratch (csrc/megakernel_bwd.cu).
 REC_FIELDS = 14
+# Invariants the kernels derive from the tables into shared memory
+# (csrc/tracer.cuh prepare_scene): per triangle, per sphere, of the light.
+TRI_PRE, SPH_PRE, LIGHT_PRE = 9, 1, 11
+# The backward's block and its per-thread gradient slots: the widest row,
+# the light and the camera's 12 entries (csrc/megakernel_bwd.cu).
+BWD_THREADS = 128
+SLOT_FLOATS = TRI_COLS + LIGHT_COLS + 12
+
+
+def _table_floats(scene: SceneData) -> int:
+    return (scene.spheres.count * SPH_COLS + scene.quads.count * QUAD_COLS
+            + scene.triangles.count * TRI_COLS + LIGHT_COLS + CAM_COLS)
+
+
+def bwd_smem_bytes(scene: SceneData) -> int:
+    """Dynamic shared memory of a backward block (``bwd_smem_bytes`` in
+    ``csrc/megakernel_bwd.cu``, held to this by a test): the tables and
+    their invariants (``scene_floats`` in ``csrc/tracer.cuh``), the block's
+    table gradients and the threads' slots."""
+    invariants = (scene.triangles.count * TRI_PRE
+                  + scene.spheres.count * SPH_PRE + LIGHT_PRE)
+    return 4 * (2 * _table_floats(scene) + invariants
+                + SLOT_FLOATS * (BWD_THREADS + 1))
 
 
 def _mat_cols(materials, mid):
@@ -224,11 +247,13 @@ def _prepare(rand_state, px, py, tables, scene: SceneData):
     n = px.shape[0]
     flat = torch.cat([t.detach().reshape(-1) for t in tables])
     flat = flat.to(device=device, dtype=torch.float32).contiguous()
-    if flat.numel() * 4 > MAX_SMEM_BYTES // 2:
+    smem = bwd_smem_bytes(scene)
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"megakernel scene tables take {flat.numel() * 4} "
-                         f"bytes of shared memory; the backward holds them "
-                         f"and their gradients, at most {MAX_SMEM_BYTES} "
-                         f"bytes a block may use")
+                         f"bytes; the backward's block holds them, their "
+                         f"invariants, their gradients and its threads' "
+                         f"slots in {smem} bytes of shared memory, at most "
+                         f"{MAX_SMEM_BYTES} bytes a block may use")
     for name, t in (("rand_state", rand_state), ("px", px), ("py", py)):
         if t.device != device or t.shape != (n,):
             raise ValueError(f"{name} must be [{n}] on {device}, got "
