@@ -35,17 +35,24 @@ Phases, each printed on its own line; any failure exits non-zero:
    the wavefront, in turns, the backward alone of each, and the backward
    kernel's device time from torch.profiler;
 10. traversal_vs_plain: the CUDA traversal kernel against its plain
-    version (the skip-link walk) on the card, from the same 65,536 rays,
-    at 81,920 and 327,680 triangles (median BVH), with the walk's node
-    visits and triangle tests, the kernel's and the packing's device time
-    and the walk's time;
+    version (the skip-link walk) on the card, from the same 65,536 rays:
+    the same hit mask and triangle index on every lane and t equal bit for
+    bit, at 81,920 and 327,680 triangles (median BVH) and on two meshes
+    added twice (every hit an exact tie) through the median, SAH and LBVH
+    builders; the packing kernel's tables against its plain version, bit
+    for bit; the tree's depth; the skip-link walk's node visits and
+    triangle tests beside the kernel's row fetches, slab tests and
+    triangle tests (counted by the kernel's walk built for the host), the
+    kernel's and the packing's device time and the walk's time;
 11. mesh_main_path: the mesh path, ``Renderer.render_animation(8)`` of
     bench.py's 81,920-triangle mirror icosphere at 512x512 (4 bounces,
-    NEE) with the traversal kernel's launch count, then one frame through
-    the kernel and through the plain walk from the same PCG states;
+    NEE) with the traversal and packing kernels' launch counts, then one
+    frame through the kernel and through the plain walk from the same PCG
+    states;
 12. mesh_timing: frame times through the kernel and the plain walk at
-    512x512, through the kernel at 1024x1024 with 327,680 triangles, and
-    a torch.profiler breakdown of a mesh frame;
+    512x512, through the kernel at 1024x1024 with 327,680 triangles, a
+    torch.profiler breakdown of a mesh frame, and the four traversal
+    launches of one frame replayed one by one (work, device time, bound);
 13. mesh_train: 3 steps of ``make_train_step`` on the mesh scene at
     512x512 over emission and vertices (the BVH refit runs every step);
 14. mesh_cli: ``python -m tpu_path_tracer_torch render`` of an OBJ written
@@ -83,7 +90,8 @@ kernel's own device time per frame (phase 6's profile); the backward's
 ``ms`` is a train step's backward and its ``device_ms`` the kernel's own
 (phase 9).  Both megakernel rows also carry what ptxas reported at the
 build (``registers``, ``spill_bytes``, static ``smem_bytes``,
-``stack_bytes``).  Imports nothing of JAX.
+``stack_bytes``), as do the traversal kernel's and the packing
+kernel's rows.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +114,11 @@ BWD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:804"
 TRAV_SOURCE = "tpu_path_tracer_torch/csrc/traversal.cu"
 TRAV_REPLACES = ("tpu_path_tracer/kernels/pallas/traversal.py:752, "
                  "tpu_path_tracer/kernels/pallas/traversal.py:865")
+TRAV_KERNEL = "bvh_stack_walk_kernel"
+# The traversal kernel's tables, packed on the card every call; the TPU
+# kernels' tables are built by pack_tris with XLA ops.
+PACK_KERNEL = "bvh_pack_kernel"
+PACK_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:145"
 PAIR_SOURCE = "tpu_path_tracer_torch/csrc/pair_sweep.cu"
 PAIRBIN_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1417"
 PAIR_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1723"
@@ -199,8 +212,9 @@ PEAK_HBM_BYTES = 3.35e12
 # csrc/traversal.cu, each add, multiply, division, square root, min, max
 # and compare one operation; integer work (the PCG stream, indexing) is not
 # counted, so the bounds are lower bounds.
-SLAB_FLOPS = 31      # slab_hit: 12 for t0/t1, 6 NaN checks, 13 min/max/cmp
-MT_FLOPS = 64        # triangle_mt from the corners, running-best compare
+ROW_FLOPS = 63       # a node row: two box_enter (12 for t0/t1, 6 NaN
+#                      checks, 11 min/max, 2 compares) and the order compare
+PACK_TRI_FLOPS = 15  # triangle_edges: ab, ac (6), ab x ac (9)
 EDGE_FLOPS = 53      # pair_sweep.cu edge_test: 3 x 11 edge volumes, tn 6,
 #                      den 2, 1/den, t, |den| and 5 compares 7, 3 s_k/den
 PAIR_SLAB_FLOPS = 25  # chunk_slab_hit: 12 for t0/t1, 10 min/max, 3 compares
@@ -217,7 +231,8 @@ SPHERE_PASS_FLOPS = 2  # with volumes, per sphere: its draw scaled to
 SPHERE_FLOPS = 29    # a solid sphere: roots 23, root choice, running best
 QUAD_CULL_FLOPS = 7  # every quad: n . d, the back-face and parallel compares
 QUAD_FLOPS = 51      # a quad the ray faces: t, alpha, beta, compares
-MT_PRE_FLOPS = 45    # triangle_mt_pre and the running-best compare
+MT_PRE_FLOPS = 45    # triangle_mt_pre and the running-best compare (also
+#                      the traversal's triangle test)
 SPAN_FLOPS = 29      # an ISOTROPIC sphere: roots 23, its span's 6
 FLIGHT_FLOPS = 7     # a span before the closest hit: length, log, compare
 EVENT_FLOPS = 3      # a flight that ends inside: t and the running best
@@ -325,7 +340,8 @@ def build_phase():
                             if "Used" in ln or "spill" in ln
                             or "entry function" in ln])
     return {name: _build.ptxas_report(text, f"{name}_kernel")
-            for name in ("megakernel_fwd", "megakernel_bwd")}
+            for name in ("megakernel_fwd", "megakernel_bwd", "bvh_stack_walk",
+                         "bvh_pack")}
 
 
 def kernel_vs_plain(torch, pt, device, scene_fn, eye, cfg, frame=3):
@@ -974,15 +990,70 @@ def mesh_scene(pt, device, subdivisions, timings=None):
     return b.build(bvh="median", timings=timings, device=device)
 
 
-def traversal_bound(n_rays, n_nodes, n_tris, stats):
-    """FP32 operations of the walk this bundle took (counted on the plain
-    walk) and the bytes of rays in, results out, and the node and triangle
-    tables read once."""
-    flops = (stats["node_visits"] * SLAB_FLOPS + stats["tri_tests"] * MT_FLOPS
+def traversal_bound(n_rays, n_rows, n_tris, work):
+    """FP32 operations of the walks these rays took (counted by the
+    kernel's own walk on the host, ``counted_walk``) and the bytes of rays
+    in, results out, and the node and triangle rows read once."""
+    flops = (work["rows"] * ROW_FLOPS + work["tri_tests"] * MT_PRE_FLOPS
              + 3 * n_rays)
-    nbytes = n_rays * (7 * 4 + 2 * 4) + n_nodes * 36 + n_tris * 36
+    nbytes = n_rays * (7 * 4 + 2 * 4) + n_rows * 64 + n_tris * 48
     ms, by = bound(flops, nbytes)
     return {"bound_ms": ms, "bound_by": by, "flops": flops, "bytes": nbytes}
+
+
+def pack_bound(n_nodes, n_rows, n_tris):
+    """The packing's bytes (the BVH's bounds and five int64 fields, the
+    corners in; node and triangle rows out) and operations."""
+    ms, by = bound(n_tris * PACK_TRI_FLOPS,
+                   n_nodes * 64 + n_tris * 36 + n_rows * 64 + n_tris * 48)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def counted_walk(torch, rows, tri_rows, o, d, t0, t_min):
+    """The kernel's walk run on the host (``csrc/traversal.cu``
+    ``tpt_bvh_walk_host``, the same __host__ __device__ code with a work
+    counter) over the tables the card packed: (t, index, node rows
+    fetched, triangle tests)."""
+    import ctypes
+
+    from tpu_path_tracer_torch.kernels import _build
+    from tpu_path_tracer_torch.kernels.intersect import INF
+
+    fn = _build.load().tpt_bvh_walk_host
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 5 + [i, f, f, p, p, p]
+    fn.restype = None
+    rows, tri_rows, o, d, t0 = (x.detach().cpu().contiguous()
+                                for x in (rows, tri_rows, o, d, t0))
+    n = o.shape[0]
+    t = torch.empty(n)
+    idx = torch.empty(n, dtype=torch.int32)
+    work = torch.zeros(2, dtype=torch.int64)
+    fn(o.data_ptr(), d.data_ptr(), t0.data_ptr(), rows.data_ptr(),
+       tri_rows.data_ptr(), n, t_min, INF, t.data_ptr(), idx.data_ptr(),
+       work.data_ptr())
+    return t.numpy(), idx.numpy(), int(work[0]), int(work[1])
+
+
+@contextlib.contextmanager
+def recorded_traversal(calls):
+    """Keep the arguments of every BVH closest-hit search find_hit makes,
+    ``(origin, direction, bvh, triangles, t_min, t_best0)`` copied, and
+    answer through the wrapper."""
+    from tpu_path_tracer_torch.kernels import traversal
+
+    kernel = traversal.closest_hit
+
+    def recording(origin, direction, bvh, tris, t_min, t_best0):
+        calls.append((origin.clone(), direction.clone(), bvh, tris, t_min,
+                      t_best0.clone()))
+        return kernel(origin, direction, bvh, tris, t_min, t_best0)
+
+    traversal.closest_hit = recording
+    try:
+        yield
+    finally:
+        traversal.closest_hit = kernel
 
 
 def profile_device_ms(torch, fn, calls, names):
@@ -1021,65 +1092,153 @@ def time_events(torch, fn, calls):
     return start.elapsed_time(end) / calls
 
 
+# Phase 10's doubled meshes: (name, mesh, radius the rays aim at, seed).
+TIE_MESHES = (
+    ("ico_twice", lambda pt: pt.procedural.icosphere(MESH_SUBDIVISIONS[0],
+                                                     0.8), 0.8, 3),
+    ("cube_twice", lambda pt: pt.procedural.cube(), 0.270893, 7))
+
+
+def tie_scene(pt, device, make, builder):
+    """A mesh added twice at the same place, so that every hit is an exact
+    tie between two copies of one triangle, through ``builder``."""
+    b = pt.SceneBuilder()
+    white = b.add_material("white", pt.LAMBERTIAN, [0.73, 0.73, 0.73])
+    for _ in range(2):
+        b.add_mesh(make(pt), white)
+    return b.build(bvh=builder, device=device)
+
+
+def traversal_vs_plain(torch, scene, meta, rays, t_min, name):
+    """The traversal kernel against the plain walk, and the packing kernel
+    against its plain version, on one scene and bundle; the kernel's walk
+    run again on the host over the card's tables counts its work.  Returns
+    the phase's row (checked), the counts and the kernel's indices."""
+    import numpy as np
+    from tpu_path_tracer_torch.kernels import traversal
+
+    bvh, tris = scene.bvh, scene.triangles
+    o, d, t0 = rays
+    rows, tri_rows = traversal.pack_bvh(bvh, tris)
+    p_rows, p_tris = traversal.pack_bvh_plain(bvh, tris)
+    pack_equal = (torch.equal(rows.view(torch.int32),
+                              p_rows.view(torch.int32))
+                  and torch.equal(tri_rows.view(torch.int32),
+                                  p_tris.view(torch.int32)))
+    pack_err = max(float((rows[:, :12] - p_rows[:, :12]).abs()
+                         .nan_to_num(0.0).max()),
+                   float((tri_rows - p_tris).abs().max()))
+    t_k, i_k = traversal.closest_hit(o, d, bvh, tris, t_min, t0)
+    torch.cuda.synchronize()
+    stats = {}
+    start = time.perf_counter()
+    t_p, i_p = traversal.bvh_closest_hit(o, d, bvh, tris, t_min, t0,
+                                         meta.max_leaf, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    t_h, i_h, n_rows, n_tests = counted_walk(torch, rows, tri_rows, o, d, t0,
+                                             t_min)
+    t_k, i_k, t_p, i_p = (x.cpu().numpy() for x in (t_k, i_k, t_p, i_p))
+    n = len(i_p)
+    dead = t0.cpu().numpy() < 0
+    hit = i_p >= 0
+    row = {"tris": tris.count, "nodes": bvh.count, "rows": rows.shape[0],
+           "depth": int(traversal.tree_depth(bvh)),
+           "same_index": float((i_k == i_p).mean()),
+           "same_hit_mask": bool(((i_k >= 0) == hit).all()),
+           "max_abs_err": (float(np.abs(t_k[hit] - t_p[hit]).max())
+                           if hit.any() else 0.0),
+           "t_bit_equal": bool((t_k.view(np.uint32)
+                                == t_p.view(np.uint32)).all()),
+           "host_walk_equal": bool((i_h == i_k).all() and (
+               t_h.view(np.uint32) == t_k.view(np.uint32)).all()),
+           "retired_all_miss": bool((i_k[dead] == -1).all()),
+           "hit_share": float(hit.mean()),
+           "pack_bit_equal": bool(pack_equal), "pack_max_abs_err": pack_err,
+           "walk_node_visits_per_ray": stats["node_visits"] / n,
+           "walk_tri_tests_per_ray": stats["tri_tests"] / n,
+           "walk_iterations": stats["iterations"],
+           "row_fetches_per_ray": n_rows / n,
+           "slab_tests_per_ray": 2 * n_rows / n,
+           "tri_tests_per_ray": n_tests / n, "plain_ms": plain_ms}
+    check(row["pack_bit_equal"], f"{name}: packed tables differ from the "
+          f"plain packing by {pack_err}")
+    check(row["same_hit_mask"], f"{name}: hit masks differ")
+    check(row["same_index"] == 1.0, f"{name}: triangle indices differ on "
+          f"{1 - row['same_index']:.2e} of lanes")
+    check(row["max_abs_err"] <= TRAV_T_TOL,
+          f"{name}: t differs by {row['max_abs_err']}")
+    check(row["t_bit_equal"], f"{name}: t differs in its bits")
+    check(row["host_walk_equal"], f"{name}: the host build of the walk "
+          f"differs from the kernel")
+    check(row["retired_all_miss"], f"{name}: a retired lane hit")
+    check(row["hit_share"] > 0.3, f"{name}: the rays miss the mesh")
+    return row, {"rows": n_rows, "tri_tests": n_tests}, i_k
+
+
 def traversal_phase(torch, pt, device, smi):
     """Phase 10: the traversal kernel against the plain walk on the card,
-    from the same rays, at both mesh sizes.  Returns the 81,920-triangle
+    from the same rays, at both mesh sizes (median BVH, timed) and on the
+    doubled meshes through every builder.  Returns the 81,920-triangle
     case's numbers for the kernels line."""
     import numpy as np
     from tpu_path_tracer_torch.accel import native
     from tpu_path_tracer_torch.kernels import traversal
 
     t_min = pt.RenderConfig().t_min
+    builder = "native" if native.available() else "numpy"
     out = {}
     for sub in MESH_SUBDIVISIONS:
         timings = {}
         scene, meta = mesh_scene(pt, device, sub, timings)
         bvh, tris = scene.bvh, scene.triangles
-        o, d, t0 = (torch.from_numpy(x).to(device) for x in traversal_rays(
+        rays = tuple(torch.from_numpy(x).to(device) for x in traversal_rays(
             TRAV_RAYS, sub, 0.8, tris.a.cpu().numpy()))
-        t_k, i_k = traversal.closest_hit(o, d, bvh, tris, t_min, t0)
-        torch.cuda.synchronize()
-        stats = {}
-        start = time.perf_counter()
-        t_p, i_p = traversal.bvh_closest_hit(o, d, bvh, tris, t_min, t0,
-                                             meta.max_leaf, stats=stats)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - start) * 1e3
-        t_k, i_k, t_p, i_p = (x.cpu().numpy() for x in (t_k, i_k, t_p, i_p))
-        dead = t0.cpu().numpy() < 0
-        hit = i_p >= 0
-        err = float(np.abs(t_k[hit] - t_p[hit]).max()) if hit.any() else 0.0
+        row, work, _ = traversal_vs_plain(torch, scene, meta, rays, t_min,
+                                          f"{tris.count} triangles")
 
         def call():
-            traversal.closest_hit(o, d, bvh, tris, t_min, t0)
+            traversal.closest_hit(*rays[:2], bvh, tris, t_min, rays[2])
 
         call_ms = time_events(torch, call, 20)
         pack_ms = time_events(
             torch, lambda: traversal.pack_bvh(bvh, tris), 20)
+        pack_plain_ms = time_events(
+            torch, lambda: traversal.pack_bvh_plain(bvh, tris), 5)
         dev_ms, _ = profile_device_ms(torch, call, 10,
-                                      {"kernel": ["bvh_closest_hit"]})
-        b = traversal_bound(TRAV_RAYS, bvh.count, tris.count, stats)
-        row = {"tris": tris.count, "nodes": bvh.count,
-               "builder": "native" if native.available() else "numpy",
-               "bvh_build_s": timings["bvh_build_s"],
-               "same_index": float((i_k == i_p).mean()),
-               "same_hit_mask": bool(((i_k >= 0) == hit).all()),
-               "max_abs_err": err, "t_bit_equal": bool((t_k == t_p).all()),
-               "retired_all_miss": bool((i_k[dead] == -1).all()),
-               "hit_share": float(hit.mean()),
-               "node_visits_per_ray": stats["node_visits"] / TRAV_RAYS,
-               "tri_tests_per_ray": stats["tri_tests"] / TRAV_RAYS,
-               "walk_iterations": stats["iterations"],
-               "kernel_ms": dev_ms["kernel"], "call_ms": call_ms,
-               "pack_ms": pack_ms, "plain_ms": plain_ms, **b}
+                                      {"kernel": [TRAV_KERNEL],
+                                       "pack": [PACK_KERNEL]})
+        b = traversal_bound(TRAV_RAYS, row["rows"], tris.count, work)
+        pb = pack_bound(bvh.count, row["rows"], tris.count)
+        row.update(case="bundle", builder=builder,
+                   bvh_build_s=timings["bvh_build_s"],
+                   kernel_ms=dev_ms["kernel"], call_ms=call_ms,
+                   pack_kernel_ms=dev_ms["pack"], pack_ms=pack_ms,
+                   pack_plain_ms=pack_plain_ms,
+                   pack_bound_ms=pb["bound_ms"],
+                   pack_bound_by=pb["bound_by"], **b)
         phase("traversal_vs_plain", rays=TRAV_RAYS, card=smi, **row)
-        check(row["same_hit_mask"], f"{sub}: hit masks differ")
-        check(row["same_index"] == 1.0, f"{sub}: triangle indices differ on "
-              f"{1 - row['same_index']:.2e} of lanes")
-        check(err <= TRAV_T_TOL, f"{sub}: t differs by {err}")
-        check(row["retired_all_miss"], f"{sub}: a retired lane hit")
-        check(row["hit_share"] > 0.3, f"{sub}: the rays miss the mesh")
         out[sub] = row
+    for mesh, make, radius, seed in TIE_MESHES:
+        for method in ("median", "sah", "lbvh"):
+            scene, meta = tie_scene(pt, device, make, method)
+            tris = scene.triangles
+            corners = torch.cat([tris.a, tris.b, tris.c], 1).cpu().numpy()
+            rays = tuple(torch.from_numpy(x).to(device) for x in
+                         traversal_rays(TRAV_RAYS, seed, radius,
+                                        corners[:, :3]))
+            row, _, i_k = traversal_vs_plain(torch, scene, meta, rays,
+                                             t_min, f"{mesh}, {method}")
+            # Each triangle's copy: the rows of equal corners come in pairs.
+            _, group = np.unique(corners.view(np.uint32), axis=0,
+                                 return_inverse=True)
+            order = np.argsort(group.ravel(), kind="stable")
+            twin = np.empty(len(order), np.int64)
+            twin[order[0::2]], twin[order[1::2]] = order[1::2], order[0::2]
+            won = i_k[i_k >= 0]
+            phase("traversal_vs_plain", case=mesh, rays=TRAV_RAYS,
+                  bvh=method, builder=builder, card=smi,
+                  lower_copy_share=float((won < twin[won]).mean()), **row)
     return out[MESH_SUBDIVISIONS[0]]
 
 
@@ -1117,12 +1276,13 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
     renderer = pt.Renderer(scene, meta, cfg,
                            pt.Camera(eye=MESH_EYE, center=[0, 0, 0]))
     torch.cuda.synchronize()
-    traversal.LAUNCHES = 0
+    traversal.LAUNCHES = traversal.PACK_LAUNCHES = 0
     start = time.perf_counter()
     fb = renderer.render_animation(frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = traversal.LAUNCHES
+    pack_launches = traversal.PACK_LAUNCHES
     fb_np = fb.cpu().numpy()
     img = renderer.display()
     png = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
@@ -1131,11 +1291,15 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
     renderer.save_png(png)
     phase("mesh_main_path", tris=scene.triangles.count, frames=frames,
           max_bounces=cfg.max_bounces, launches=launches,
-          seconds=round(seconds, 4), fb_mean=fb_np.mean(0).tolist(),
+          pack_launches=pack_launches, seconds=round(seconds, 4),
+          fb_mean=fb_np.mean(0).tolist(),
           image_std=float(img.std()), png=os.path.relpath(png, REPO))
     check(launches == cfg.max_bounces * frames,
           f"traversal kernel launched {launches} times for {frames} frames "
           f"of {cfg.max_bounces} bounces")
+    check(pack_launches == launches,
+          f"packing kernel launched {pack_launches} times for {launches} "
+          f"traversal launches")
     check(fb_np.shape == (cfg.width * cfg.height, 3), "framebuffer shape")
     check(np.isfinite(fb_np).all(), "non-finite framebuffer")
     check(float(img.std()) > 1.0, "the image is flat")
@@ -1156,7 +1320,7 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
           f"mesh frame: only {share:.4f} of pixels within {KERNEL_TOL}")
     check(np.allclose(got.mean(0), ref.mean(0), rtol=KERNEL_MEAN_RTOL,
                       atol=1e-6), "mesh frame: image means differ")
-    return launches
+    return launches, pack_launches
 
 
 def mesh_timing_phase(torch, pt, device, smi):
@@ -1198,12 +1362,14 @@ def mesh_timing_phase(torch, pt, device, smi):
         render_frame(fb, frame[0], frame[0] == 1, view, scene, meta, cfg)
 
     dev_ms, rows = profile_device_ms(
-        torch, one_frame, 4, {"traversal": ["bvh_closest_hit"]})
+        torch, one_frame, 4, {"traversal": [TRAV_KERNEL],
+                              "pack": [PACK_KERNEL]})
     pack_ms = time_events(
         torch, lambda: traversal.pack_bvh(scene.bvh, scene.triangles), 20)
     phase("mesh_profile", tris=scene.triangles.count,
           size=f"{cfg.width}x{cfg.height}", frames=4,
           pack_ms_per_launch=pack_ms,
+          pack_device_ms_per_frame=dev_ms["pack"],
           traversal_device_ms_per_frame=dev_ms["traversal"],
           traversal_device_ms_per_launch=(
               dev_ms["traversal"] / cfg.max_bounces
@@ -1215,6 +1381,10 @@ def mesh_timing_phase(torch, pt, device, smi):
                 "ms_per_frame": device_us(e) / 1e3 / 4} for e in rows[:8]])
     out["kernel_device_ms_per_launch"] = (
         dev_ms["traversal"] / cfg.max_bounces if rows else "not measured")
+    out["pack_device_ms_per_launch"] = (
+        dev_ms["pack"] / cfg.max_bounces if rows else "not measured")
+    out["bound_ms_per_launch"] = mesh_launches(torch, pt, scene, meta, cfg,
+                                               view, smi)
 
     big, big_meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[1])
     big_cfg = cfg.replace(width=2 * cfg.width, height=2 * cfg.height)
@@ -1224,6 +1394,40 @@ def mesh_timing_phase(torch, pt, device, smi):
           ms_per_frame=statistics.median(t[1:]), ms_min=min(t[1:]),
           ms_max=max(t[1:]), frames=len(t) - 1, card=smi)
     return out
+
+
+def mesh_launches(torch, pt, scene, meta, cfg, view, smi):
+    """Phase 12's launches of one mesh frame (frame 3), recorded and
+    replayed one by one: live rays, the kernel's work (counted by its walk
+    on the host) and device time, and each launch's bound.  Returns the
+    launches' mean bound."""
+    from tpu_path_tracer_torch.integrator.render import render_frame
+    from tpu_path_tracer_torch.kernels import traversal
+
+    calls = []
+    with recorded_traversal(calls):
+        render_frame(torch.zeros((cfg.width * cfg.height, 3),
+                                 device=scene.bvh.mins.device), 3, True, view,
+                     scene, meta, cfg)
+    check(len(calls) == cfg.max_bounces, f"{len(calls)} traversal calls in "
+          f"a frame of {cfg.max_bounces} bounces")
+    bounds = []
+    for bounce, (o, d, bvh, tris, t_min, t0) in enumerate(calls):
+        rows, tri_rows = traversal.pack_bvh(bvh, tris)
+        _, _, n_rows, n_tests = counted_walk(torch, rows, tri_rows, o, d, t0,
+                                             t_min)
+        b = traversal_bound(o.shape[0], rows.shape[0], tris.count,
+                            {"rows": n_rows, "tri_tests": n_tests})
+        dev_ms, _ = profile_device_ms(
+            torch, lambda: traversal.closest_hit(o, d, bvh, tris, t_min, t0),
+            10, {"kernel": [TRAV_KERNEL]})
+        live = max(int((t0 >= 0).sum()), 1)
+        phase("mesh_launch", bounce=bounce, rays=o.shape[0], live_rays=live,
+              row_fetches_per_live_ray=n_rows / live,
+              tri_tests_per_live_ray=n_tests / live,
+              kernel_ms=dev_ms["kernel"], card=smi, **b)
+        bounds.append(b["bound_ms"])
+    return statistics.mean(bounds)
 
 
 def mesh_train_phase(torch, pt, device, steps=3):
@@ -1250,7 +1454,7 @@ def mesh_train_phase(torch, pt, device, steps=3):
     step = render_dist.make_train_step(None, scene, meta, cfg, apply_params,
                                        optimizer)
     torch.cuda.synchronize()
-    traversal.LAUNCHES = 0
+    traversal.LAUNCHES = traversal.PACK_LAUNCHES = 0
     losses, step_ms, grad_max = [], [], []
     for _ in range(steps):
         start = time.perf_counter()
@@ -1267,13 +1471,15 @@ def mesh_train_phase(torch, pt, device, steps=3):
           size=f"{cfg.width}x{cfg.height}",
           max_bounces=cfg.max_bounces, groups=list(MESH_GROUPS), steps=steps,
           losses=losses, step_ms=step_ms, grad_max=grad_max,
-          launches=launches)
+          launches=launches, pack_launches=traversal.PACK_LAUNCHES)
     check(all(np.isfinite(losses)), "non-finite mesh training loss")
     check(all(g[k] > 0 for g in grad_max for k in ("tri_a", "tri_b",
                                                    "tri_c")),
           "zero vertex gradients")
     check(launches == cfg.max_bounces * steps,
           f"traversal kernel launched {launches} times in {steps} steps")
+    check(traversal.PACK_LAUNCHES == launches,
+          "the refit's tables were not packed for every launch")
     return statistics.median(step_ms)
 
 
@@ -1569,7 +1775,7 @@ def pair_phase(torch, pt, device, smi):
         t_w, i_w = (x.cpu().numpy() for x in bvh_call())
         bvh_call_ms = time_events(torch, bvh_call, 10)
         bvh_dev, _ = profile_device_ms(torch, bvh_call, 5,
-                                       {"kernel": ["bvh_closest_hit"]})
+                                       {"kernel": [TRAV_KERNEL]})
         for route, entry in entries.items():
             calls = []
             with recorded_sweep(route, calls):
@@ -1718,7 +1924,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
         with pair_dispatch(route):
             t = time_frames(torch, pt, device, scene, meta, cfg, view, 1 + 4)
         samples[route] += t[1:]
-    kernels = {None: "bvh_closest_hit", "pairbin": "pairbin_sweep_kernel",
+    kernels = {None: TRAV_KERNEL, "pairbin": "pairbin_sweep_kernel",
                "pair": "pair_sweep_kernel"}
     for route, t in samples.items():
         with pair_dispatch(route):
@@ -1838,7 +2044,7 @@ def run():
     train_launches = train_phase(torch, pt, device)
     train_times, kernel_ms = train_timing_phase(torch, pt, device, smi)
     trav = traversal_phase(torch, pt, device, smi)
-    mesh_launches = mesh_main_path_phase(torch, pt, device)
+    mesh_launches, pack_launches = mesh_main_path_phase(torch, pt, device)
     mesh_times = mesh_timing_phase(torch, pt, device, smi)
     mesh_train_phase(torch, pt, device)
     mesh_cli_phase(pt)
@@ -1884,7 +2090,17 @@ def run():
          "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
          "bound_by": trav["bound_by"], "library_ms": None,
          "main_path_ms_per_launch":
-             mesh_times["kernel_device_ms_per_launch"]}] + [
+             mesh_times["kernel_device_ms_per_launch"],
+         "main_path_bound_ms_per_launch": mesh_times["bound_ms_per_launch"],
+         **ptxas["bvh_stack_walk"]},
+        {"name": "bvh_pack", "route": "cuda", "source": TRAV_SOURCE,
+         "replaces": PACK_REPLACES, "launches": pack_launches,
+         "max_abs_err": trav["pack_max_abs_err"],
+         "ms": trav["pack_kernel_ms"], "plain_ms": trav["pack_plain_ms"],
+         "bound_ms": trav["pack_bound_ms"], "bound_by": trav["pack_bound_by"],
+         "library_ms": None,
+         "main_path_ms_per_launch":
+             mesh_times["pack_device_ms_per_launch"], **ptxas["bvh_pack"]}] + [
         {"name": name, "route": "cuda", "source": PAIR_SOURCE,
          "replaces": replaces, "launches": pair_kernels[name]["launches"],
          "max_abs_err": pair_kernels[name]["max_abs_err"],

@@ -1,38 +1,52 @@
 #!/usr/bin/env python3
-"""Time the two megakernels of several source trees against each other on
-one GPU, at the main path's shapes, and check that their forwards agree.
+"""Time the kernels of several source trees against each other on one GPU,
+at the main path's shapes, and check that they agree.
 
 Run from the repository root::
 
     python3 kernel_ab.py --tree old=_scratch/parent --tree new=. \\
-        [--tree NAME=DIR ...] [--bits] [--reps 10] [--out DIR]
+        [--tree NAME=DIR ...] [--kernel megakernels|traversal] [--bits] \\
+        [--reps 10] [--out DIR]
 
 Each ``--tree NAME=DIR`` is a checkout root holding
 ``tpu_path_tracer_torch/csrc``: another commit's sources (a ``git
 archive`` unpacked under the gitignored ``_scratch/``), or a copy with one
 edit to time what that edit costs.  The package's own build
 (``kernels/_build.build``, the port's nvcc flags, one nvcc per source)
-compiles every tree at once, each into a library of its own, and the
-script calls the kernels through their C entry points, which every tree
-shares, on the same inputs packed by this checkout's
-``kernels.megakernel``:
+compiles every tree at once, each into a library of its own.
+
+``--kernel megakernels`` (the default) calls the two megakernels through
+their C entry points, which every tree shares, on the same inputs packed
+by this checkout's ``kernels.megakernel``:
 
 * forward: ``reference_scene()`` at 512x512, 4 bounces, 1 spp, NEE off (the
   render main path's frame);
 * backward: ``cornell_box()`` at 512x512, 4 bounces, NEE on (the training
   step's shapes), with a seeded cotangent.
 
+``--kernel traversal`` times each tree's BVH traversal kernel through that
+tree's own wrapper (its ``kernels/traversal.py`` ``_launch``, imported from
+the tree under a name of its own and bound to the library built here), so
+each tree's tables are packed by its own packer.  The inputs are
+chip_smoke.py's: the 65,536-ray bundle at 81,920 and at 327,680 triangles
+(phase 10), and the four launches of one 512x512 frame of the mesh main
+path (phase 11's scene and frame 3, recorded from ``render_frame``).  Each
+tree's packing is timed too (CUDA events around its ``pack_bvh``).
+
 Each kernel is timed in turns: the trees in order, then in reverse order;
 each turn profiles ``--reps`` launches after two warm-up launches with
 torch.profiler (CUDA events when the profiler sees no device time), and
 the script prints per tree and kernel the median, minimum and maximum
-device ms per launch, with the registers, static shared memory and spills
-ptxas reported.  ``--bits`` saves each tree's forward radiance on the
-512x512 frame and on chip_smoke.py phase 3's four 64x64 cases (frame 3 PCG
-states) as ``.npy`` files under ``--out`` and counts, for every tree, the
-pixels that differ in any bit from the first tree's; it also reports how
-far each backward's table gradients lie from the first tree's.  The last
-line is one JSON object with everything.  Imports nothing of JAX.
+device ms per launch, with the registers, static shared memory, spills
+and stack frame ptxas reported.  ``--bits`` with the megakernels saves each
+tree's forward radiance on the 512x512 frame and on chip_smoke.py phase
+3's four 64x64 cases (frame 3 PCG states) as ``.npy`` files under
+``--out`` and counts, for every tree, the pixels that differ in any bit
+from the first tree's; it also reports how far each backward's table
+gradients lie from the first tree's.  ``--bits`` with the traversal counts,
+for every tree and input, the lanes whose triangle index or any bit of t
+differs from the first tree's.  The last line is one JSON object with
+everything.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +64,9 @@ from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {"fwd": "megakernel_fwd_kernel", "bwd": "megakernel_bwd_kernel"}
+# The traversal kernel's name in each tree: the stack walk, or the
+# skip-link walk of the trees before it.
+TRAVERSAL_KERNELS = ("bvh_stack_walk_kernel", "bvh_closest_hit_kernel")
 
 
 def csrc_of(tree):
@@ -71,9 +88,11 @@ def build_all(trees, build_root):
     libs = {}
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text()
-        libs[name] = (ctypes.CDLL(str(path)),
-                      {k: _build.ptxas_report(log, v)
-                       for k, v in KERNELS.items()})
+        report = {k: _build.ptxas_report(log, v) for k, v in KERNELS.items()}
+        report["traversal"] = next(
+            _build.ptxas_report(log, k) for k in TRAVERSAL_KERNELS
+            if f"{k}" in log)
+        libs[name] = (ctypes.CDLL(str(path)), report)
     return libs
 
 
@@ -149,8 +168,9 @@ def launch(torch, lib, kind, a, gout=None):
 
 
 def device_ms(torch, fn, kernel, reps):
-    """Device ms of each of ``reps`` calls of ``fn`` that ran ``kernel``,
-    from torch.profiler, else from CUDA events around each call."""
+    """Device ms of each of ``reps`` calls of ``fn`` that ran ``kernel`` (a
+    name, or a tuple of names any of which counts), from torch.profiler,
+    else from CUDA events around each call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,8 +182,10 @@ def device_ms(torch, fn, kernel, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
+             if e.device_type == DeviceType.CUDA
+             and any(k in e.name for k in names)]
     if len(times) == reps:
         return times, "torch.profiler"
     times = []
@@ -178,10 +200,109 @@ def device_ms(torch, fn, kernel, reps):
     return times, "cuda events"
 
 
+def tree_package(name, tree, lib):
+    """The port's package of source tree ``tree``, imported as a module of
+    its own (``kernel_ab_<name>``; the package imports itself only
+    relatively), with its kernels bound to ``lib``."""
+    import importlib.util
+
+    pkg = os.path.join(tree, "tpu_path_tracer_torch")
+    alias = f"kernel_ab_{name}"
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    build = importlib.import_module(f"{alias}.kernels._build")
+    build._lib = lib
+    return importlib.import_module(f"{alias}.kernels.traversal")
+
+
+def traversal_inputs(torch, pt, device):
+    """chip_smoke.py's traversal inputs: {case: (origin, direction, bvh,
+    triangles, t_min, t_best0)} for the 65,536-ray bundle at both mesh
+    sizes and each launch of one 512x512 mesh main-path frame."""
+    import chip_smoke as cs
+    from tpu_path_tracer_torch.integrator.render import render_frame
+
+    t_min = pt.RenderConfig().t_min
+    cases = {}
+    for sub in cs.MESH_SUBDIVISIONS:
+        scene, _ = cs.mesh_scene(pt, device, sub)
+        o, d, t0 = (torch.from_numpy(x).to(device) for x in cs.traversal_rays(
+            cs.TRAV_RAYS, sub, 0.8, scene.triangles.a.cpu().numpy()))
+        cases[f"bundle_{scene.triangles.count}"] = (
+            o, d, scene.bvh, scene.triangles, t_min, t0)
+    scene, meta = cs.mesh_scene(pt, device, cs.MESH_SUBDIVISIONS[0])
+    cfg = pt.RenderConfig(**cs.MESH_KW)
+    view = pt.Camera(eye=cs.MESH_EYE, center=[0, 0, 0]).view_matrix
+    calls = []
+    with cs.recorded_traversal(calls):
+        render_frame(torch.zeros((cfg.width * cfg.height, 3), device=device),
+                     3, True, view, scene, meta, cfg)
+    for bounce, call in enumerate(calls):
+        cases[f"frame_bounce{bounce}"] = call
+    return cases
+
+
+def traversal_ab(torch, pt, device, trees, libs, args, smi):
+    """The traversal kernel of every tree in turns on every input, each
+    tree's packing timed, and with ``--bits`` the lanes that differ from
+    the first tree's."""
+    names = list(trees)
+    first = names[0]
+    mods = {v: tree_package(v, trees[v], libs[v][0]) for v in names}
+    cases = traversal_inputs(torch, pt, device)
+    results, bits = [], {}
+    for case, (o, d, bvh, tris, t_min, t0) in cases.items():
+        samples = {v: [] for v in names}
+        pack = {v: [] for v in names}
+        how = set()
+        for v in names + names[::-1]:
+            mod = mods[v]
+            t, method = device_ms(
+                torch, lambda: mod._launch(o, d, bvh, tris, t_min, t0),
+                TRAVERSAL_KERNELS, args.reps)
+            samples[v] += t
+            how.add(method)
+            for _ in range(args.reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                mod.pack_bvh(bvh, tris)
+                end.record()
+                end.synchronize()
+                pack[v].append(start.elapsed_time(end))
+        for v in names:
+            t = samples[v]
+            row = {"tree": v, "case": case, "rays": o.shape[0],
+                   "live_rays": int((t0 >= 0).sum()),
+                   "tris": tris.count, "median_ms": statistics.median(t),
+                   "min_ms": min(t), "max_ms": max(t), "launches": len(t),
+                   "pack_ms": statistics.median(pack[v]),
+                   "timed_by": sorted(how), **libs[v][1]["traversal"],
+                   "card": smi}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+        if args.bits:
+            outs = {v: [x.cpu().numpy() for x in mods[v]._launch(
+                o, d, bvh, tris, t_min, t0)] for v in names}
+            t_ref, i_ref = outs[first]
+            bits[case] = {
+                v: int(((i != i_ref) | (t.view("u4") != t_ref.view("u4")))
+                       .sum()) for v, (t, i) in outs.items() if v != first}
+            print(json.dumps({"bits": case, "lanes": len(i_ref),
+                              "differing_lanes": bits[case]}), flush=True)
+    return results, bits
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", required=True,
                     help="NAME=DIR, a checkout root")
+    ap.add_argument("--kernel", choices=("megakernels", "traversal"),
+                    default="megakernels")
     ap.add_argument("--bits", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=os.path.join(REPO, "_scratch",
@@ -214,6 +335,11 @@ def main():
           flush=True)
 
     device = torch.device("cuda", 0)
+    if args.kernel == "traversal":
+        results, bits = traversal_ab(torch, pt, device, trees, libs, args,
+                                     smi)
+        print(json.dumps({"card": smi, "kernels": results, "bits": bits}))
+        return
     fwd_args, bwd_args, gout, small = inputs(torch, pt, device)
     kernel_args = {"fwd": (fwd_args, None), "bwd": (bwd_args, gout)}
     results = {}

@@ -300,44 +300,31 @@ def test_closest_hit_routes_by_device(walk_case):
 
 
 # The traversal kernel's source built as plain C++ for the CPU:
-# csrc/traversal.cu keeps the per-ray walk in __host__ __device__ code and
-# leaves out the kernel without nvcc.  This drives the walk over every ray
-# with the tables as the wrapper packs them.
-HOST_WALK = r"""
-#include "traversal.cu"
-extern "C" void host_closest_hit(
-    const float* origin, const float* direction, const float* t_best0,
-    const float* bounds, const int* links, const float* tris, int n,
-    int n_nodes, float t_min, float inf, float* t_out, int* idx_out) {
-  for (int i = 0; i < n; ++i) {
-    const tpt::V3 o = tpt::v3(origin[3 * i], origin[3 * i + 1],
-                              origin[3 * i + 2]);
-    const tpt::V3 d = tpt::v3(direction[3 * i], direction[3 * i + 1],
-                              direction[3 * i + 2]);
-    tpt::bvh_walk(bounds, links, tris, n_nodes, o, d, t_min, t_best0[i], inf,
-                  t_out[i], idx_out[i]);
-  }
-}
-"""
+# csrc/traversal.cu keeps the packing and the per-ray walk in __host__
+# __device__ code, leaves out the kernels without nvcc, and has host entry
+# points that drive both over every node, triangle and ray.
 
 
 def build_host_walk(out_dir, csrc_dir):
-    """Compile HOST_WALK with g++ against ``csrc_dir``; returns the loaded
+    """Compile ``csrc_dir/traversal.cu`` with g++; returns the loaded
     library, or None without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         return None
-    (out_dir / "host_walk.cpp").write_text(HOST_WALK)
     # -ffp-contract=off: no a*b+c contraction, as nvcc's --fmad=false.
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(csrc_dir), "-o",
-                    str(out_dir / "host_walk.so"),
-                    str(out_dir / "host_walk.cpp")],
+                    "-shared", "-fPIC", "-x", "c++", "-I", str(csrc_dir),
+                    "-o", str(out_dir / "host_walk.so"),
+                    str(csrc_dir / "traversal.cu")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out_dir / "host_walk.so"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_closest_hit.argtypes = [p] * 6 + [i, i, f, f, p, p]
-    lib.host_closest_hit.restype = None
+    lib.tpt_bvh_pack_host.argtypes = [p] * 7 + [i] + [p] * 3 + [i, p, p]
+    lib.tpt_bvh_pack_host.restype = None
+    lib.tpt_bvh_walk_host.argtypes = [p] * 5 + [i, f, f, p, p, p]
+    lib.tpt_bvh_walk_host.restype = None
+    lib.tpt_bvh_limits.argtypes = [p]
+    lib.tpt_bvh_limits.restype = None
     return lib
 
 
@@ -350,16 +337,36 @@ def host_walk(tmp_path_factory):
     return lib
 
 
-def run_host_walk(lib, scene, o, d, t0):
-    bounds, links, corners = traversal.pack_bvh(scene.bvh, scene.triangles)
+def host_pack(lib, bvh, tris):
+    """The packing kernel's code over every node and triangle on the CPU;
+    returns (node rows, triangle rows) as ``pack_bvh`` lays them out."""
+    row_of, n_rows = traversal._layout(bvh, tris)
+    rows = torch.empty((n_rows, traversal.NODE_ROW))
+    tri_rows = torch.empty((tris.count, traversal.TRI_ROW))
+    fields = [bvh.mins.contiguous(), bvh.maxs.contiguous(),
+              *(x.to(torch.int64).contiguous() for x in (
+                  bvh.right, bvh.prim_start, bvh.prim_count, bvh.prim_lo,
+                  row_of))]
+    corners = [x.contiguous() for x in (tris.a, tris.b, tris.c)]
+    lib.tpt_bvh_pack_host(*(x.data_ptr() for x in fields), bvh.count,
+                          *(x.data_ptr() for x in corners), tris.count,
+                          rows.data_ptr(), tri_rows.data_ptr())
+    return rows, tri_rows
+
+
+def run_host_walk(lib, scene, o, d, t0, work=None):
+    """The kernel's walk over every ray on the CPU, on tables from the
+    packing kernel's code; ``work`` (int64 [2]) receives the node rows
+    fetched and the triangle tests."""
+    rows, tri_rows = host_pack(lib, scene.bvh, scene.triangles)
     o, d, t0 = (torch.from_numpy(np.ascontiguousarray(x)) for x in (o, d, t0))
     t = torch.empty(o.shape[0])
     i = torch.empty(o.shape[0], dtype=torch.int32)
-    lib.host_closest_hit(o.data_ptr(), d.data_ptr(), t0.data_ptr(),
-                         bounds.data_ptr(), links.data_ptr(),
-                         corners.data_ptr(), o.shape[0], scene.bvh.count,
-                         T_MIN, float(intersect.INF), t.data_ptr(),
-                         i.data_ptr())
+    lib.tpt_bvh_walk_host(o.data_ptr(), d.data_ptr(), t0.data_ptr(),
+                          rows.data_ptr(), tri_rows.data_ptr(), o.shape[0],
+                          T_MIN, float(intersect.INF), t.data_ptr(),
+                          i.data_ptr(),
+                          None if work is None else work.data_ptr())
     return t.numpy(), i.numpy()
 
 
