@@ -59,19 +59,27 @@ Phases, each printed on its own line; any failure exits non-zero:
     by ``save_obj``, through a median BVH, on the card;
 15. pair_vs_plain: the two pair-sweep kernels against their plain versions
     on the card, on the pair arrays of a real emission of phase 10's 65,536
-    rays at 81,920 and 327,680 triangles; then each entry point
+    rays at 81,920 and 327,680 triangles; the emission's kernels
+    (``csrc/pair_emit.cu``) against the torch emission on the same inputs,
+    call by call (rows row for row and bit for bit, the reductions' results
+    bit for bit), and each entry point against the same route with the
+    torch emission (every index, every bit of t); host syncs per call and
+    per round (torch.cuda's sync debug mode); then each entry point
     (``pairbin_closest_hit``, ``pair_closest_hit``) against the BVH
     kernel's answer (hit mask on every live lane, t on every lane whose
     edge-function sums are well conditioned, the others explained in
-    float64), with rays, pairs and segments per launch, kernel, emission
-    and call times, and the BVH kernel's time beside them;
+    float64), with rays, pairs and segments per launch, the kernel's, the
+    emission kernels' and the rest of the call's device time and call
+    times, with the card's emission and with the torch emission, and the
+    BVH kernel's time beside them;
 16. pair_main_path: the mesh path of phase 11 with
     ``traversal.PAIR_DISPATCH`` set to ``"pairbin"`` and to ``"pair"``:
-    launch counts of all three traversal kernels, every launch of one
-    frame against the plain version on the launch's own arguments, what
-    each of them served and its bound, one frame through each route
-    against the BVH-kernel frame from the same PCG states, and frame times
-    of the three routes;
+    launch counts of all three traversal kernels and the emission's
+    wrappers, every launch of one frame against the plain version on the
+    launch's own arguments and every emission call against the torch
+    emission, what each of them served and its bound, one frame through
+    each route against the BVH-kernel frame from the same PCG states, and
+    frame times of the three routes with their kernels' device time;
 17. user_layer: the renderer's perf log and FPS cap on the card, a
     checkpoint at frame k resumed in a new ``Renderer`` against an
     uninterrupted render, and ``render --checkpoint`` then ``--resume`` in
@@ -90,8 +98,11 @@ kernel's own device time per frame (phase 6's profile); the backward's
 ``ms`` is a train step's backward and its ``device_ms`` the kernel's own
 (phase 9).  Both megakernel rows also carry what ptxas reported at the
 build (``registers``, ``spill_bytes``, static ``smem_bytes``,
-``stack_bytes``), as do the traversal kernel's and the packing
-kernel's rows.  Imports nothing of JAX.
+``stack_bytes``), as do the traversal kernel's, the packing kernel's
+and the pair sweeps' rows; the emission's rows (``emit_pairbin``,
+``pairbin_best``, ``emit_pair``, ``pair_advance``: one launch counted per
+wrapper call, which launches the kernels it names) carry them per kernel
+under ``kernels``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -122,6 +133,15 @@ PACK_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:145"
 PAIR_SOURCE = "tpu_path_tracer_torch/csrc/pair_sweep.cu"
 PAIRBIN_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1417"
 PAIR_REPLACES = "tpu_path_tracer/kernels/pallas/traversal.py:1723"
+# The emission on the card (csrc/pair_emit.cu) has no TPU kernel: its
+# counterparts are the JAX emission around the TPU kernels, XLA ops in
+# _pairbin_path and pair_closest_hit.
+EMIT_SOURCE = "tpu_path_tracer_torch/csrc/pair_emit.cu"
+EMIT_REPLACES = {
+    "emit_pairbin": "tpu_path_tracer/kernels/pallas/traversal.py:1447",
+    "pairbin_best": "tpu_path_tracer/kernels/pallas/traversal.py:1447",
+    "emit_pair": "tpu_path_tracer/kernels/pallas/traversal.py:1755",
+    "pair_advance": "tpu_path_tracer/kernels/pallas/traversal.py:1755"}
 
 # Phase 3: per-pixel tolerance of the JAX package's own kernel parity tests
 # (tests/test_pallas.py:52).  The kernel and the wavefront evaluate sinf,
@@ -215,8 +235,11 @@ PEAK_HBM_BYTES = 3.35e12
 ROW_FLOPS = 63       # a node row: two box_enter (12 for t0/t1, 6 NaN
 #                      checks, 11 min/max, 2 compares) and the order compare
 PACK_TRI_FLOPS = 15  # triangle_edges: ab, ac (6), ab x ac (9)
-EDGE_FLOPS = 53      # pair_sweep.cu edge_test: 3 x 11 edge volumes, tn 6,
-#                      den 2, 1/den, t, |den| and 5 compares 7, 3 s_k/den
+# pair.cuh edge_test: every test its 3 x 11 edge volumes and 6 sign
+# compares; only a test whose three volumes share a strict sign goes on to
+# tn 6, den 2, 1/den, t, 3 s_k/den, |den| and 6 compares 7.
+EDGE_SIGN_FLOPS = 39
+EDGE_REST_FLOPS = 20
 PAIR_SLAB_FLOPS = 25  # chunk_slab_hit: 12 for t0/t1, 10 min/max, 3 compares
 PAIR_INV_FLOPS = 12   # pair_inv_dir, once per pair-bin row
 # The megakernels' hit search (tracer.cuh find_hit).  A block derives each
@@ -339,9 +362,19 @@ def build_phase():
         path, REPO), ptxas=[ln.strip()[-90:] for ln in log
                             if "Used" in ln or "spill" in ln
                             or "entry function" in ln])
-    return {name: _build.ptxas_report(text, f"{name}_kernel")
-            for name in ("megakernel_fwd", "megakernel_bwd", "bvh_stack_walk",
-                         "bvh_pack")}
+    out = {name: _build.ptxas_report(text, f"{name}_kernel")
+           for name in ("megakernel_fwd", "megakernel_bwd", "bvh_stack_walk",
+                        "bvh_pack", "pairbin_sweep", "pair_sweep")}
+    # The emission's kernels; the two emitting ones are templates with a
+    # counting (false) and a scattering (true) instance.
+    for kernel in {k for ks in EMIT_WRAPPER_KERNELS.values() for k in ks}:
+        if kernel.endswith("emit_kernel"):
+            for flag, step in (("0", "count"), ("1", "scatter")):
+                out[f"{kernel}.{step}"] = _build.ptxas_report(
+                    text, f"{kernel}ILb{flag}E")
+        else:
+            out[kernel] = _build.ptxas_report(text, kernel)
+    return out
 
 
 def kernel_vs_plain(torch, pt, device, scene_fn, eye, cfg, frame=3):
@@ -1513,32 +1546,208 @@ def mesh_cli_phase(pt):
 
 @contextlib.contextmanager
 def recorded_sweep(route, calls):
-    """Keep ``(arguments, results, ray of each pair)`` of every launch of a
+    """Keep ``(arguments, results, ray of each row)`` of every launch of a
     pair-sweep wrapper (``route``: "pair" or "pairbin") made inside the
-    context.  The rays come from the emission's ``_pair_rows``, which lays
-    out the rows of each launch just before it."""
+    context.  The rays come from the emission (``emit_pairbin`` /
+    ``emit_pair``), which lays out the rows of each launch just before it;
+    -1 marks a padding row."""
     from tpu_path_tracer_torch.kernels import pair_sweep as ps
 
-    name = f"{route}_sweep"
-    sweep, pair_rows = getattr(ps, name), ps._pair_rows
+    name, emit_name = f"{route}_sweep", f"emit_{route}"
+    sweep, emit = getattr(ps, name), getattr(ps, emit_name)
     rays = []
 
-    def laying_out(o, d, bound, ray, rows, n_rows):
-        rays.append(ray)
-        return pair_rows(o, d, bound, ray, rows, n_rows)
+    def laying_out(*args):
+        rows = emit(*args)
+        rays.append(rows.ray)
+        return rows
 
     def recording(*args):
         out = sweep(*args)
-        calls.append((args, out, rays.pop()))
+        calls.append((args, out, rays[-1]))
         return out
 
     setattr(ps, name, recording)
-    ps._pair_rows = laying_out
+    setattr(ps, emit_name, laying_out)
     try:
         yield
     finally:
         setattr(ps, name, sweep)
-        ps._pair_rows = pair_rows
+        setattr(ps, emit_name, emit)
+
+
+# The emission and reduction wrappers of each route and the C kernels each
+# launches (csrc/pair_emit.cu).
+EMIT_WRAPPERS = {"pairbin": ("emit_pairbin", "pairbin_best"),
+                 "pair": ("emit_pair", "pair_advance")}
+EMIT_WRAPPER_KERNELS = {
+    "emit_pairbin": ("pairbin_emit_kernel", "pair_layout_kernel",
+                     "pair_fill_kernel"),
+    "emit_pair": ("pair_emit_kernel", "pair_layout_kernel",
+                  "pair_fill_kernel"),
+    "pairbin_best": ("pair_reduce_kernel", "pairbin_finalize_kernel"),
+    "pair_advance": ("pair_reduce_kernel", "pair_advance_kernel")}
+EMIT_COUNTERS = {"emit_pairbin": "PAIRBIN_EMIT_LAUNCHES",
+                 "emit_pair": "PAIR_EMIT_LAUNCHES",
+                 "pairbin_best": "PAIRBIN_BEST_LAUNCHES",
+                 "pair_advance": "PAIR_ADVANCE_LAUNCHES"}
+
+
+@contextlib.contextmanager
+def torch_emission():
+    """Route the pair entry points' emission and reduction through their
+    plain versions (the torch emission) on the card; the sweeps still
+    launch their kernels."""
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+
+    names = [n for pair in EMIT_WRAPPERS.values() for n in pair]
+    saved = {n: getattr(ps, n) for n in names}
+    for n in names:
+        setattr(ps, n, getattr(ps, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ps, n, fn)
+
+
+@contextlib.contextmanager
+def recorded_emission(route, log):
+    """Keep ``(wrapper, arguments before the call, result)`` of every call
+    of the route's emission and reduction wrappers inside the context;
+    tensors are cloned, and ``pair_advance``'s result is the state it
+    leaves (running best, index, candidates taken)."""
+    import torch
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+
+    saved = {n: getattr(ps, n) for n in EMIT_WRAPPERS[route]}
+
+    def wrap(name, fn):
+        def call(*args):
+            before = [x.clone() if torch.is_tensor(x) else x for x in args]
+            out = fn(*args)
+            after = out if out is not None else [x.clone()
+                                                 for x in args[3:6]]
+            log.append((name, before, after))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(ps, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ps, n, fn)
+
+
+def emission_against_plain(torch, ps, log):
+    """Every recorded emission and reduction call against its plain version
+    (the torch emission) on the same inputs, on the card: the rows row for
+    row (segment keys, the ray of each row, both row arrays bit for bit),
+    the reductions' results bit for bit.  Per wrapper: calls, equal, the
+    largest difference, the plain version's ms per call, and the work of
+    each call (rays, pairs, rows, histogram cells, operations, bytes)."""
+    out = {}
+    for name, before, after in log:
+        plain = getattr(ps, f"{name}_plain")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if name == "pair_advance":
+            state = [x.clone() for x in before[3:6]]
+            plain(*before[:3], *state, *before[6:])
+            ref = state
+        else:
+            ref = plain(*before)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        row = out.setdefault(name, {"calls": 0, "equal": True,
+                                    "max_abs_err": 0.0, "plain_ms": 0.0,
+                                    "work": []})
+        row["calls"] += 1
+        row["plain_ms"] += ms
+        for x, y in zip(after, ref):
+            same = x.shape == y.shape and bool(
+                (x.view(torch.int32) == y.view(torch.int32)).all()
+                if x.dtype == torch.float32 else (x == y).all())
+            row["equal"] &= same
+            if x.shape != y.shape:
+                row["max_abs_err"] = float("inf")
+            elif x.numel():
+                row["max_abs_err"] = max(row["max_abs_err"], float(
+                    (x.double() - y.double()).abs().max()))
+        row["work"].append(emission_work(torch, name, before, after))
+    for row in out.values():
+        row["plain_ms"] /= row["calls"]
+    return out
+
+
+def emission_work(torch, name, before, after):
+    """What one emission or reduction call needed, counted from its inputs
+    and outputs: FP32 operations (a slab test 25, o x d 9 a pair, a compare
+    1) and bytes (inputs read once, outputs written once; the histogram,
+    one cell per key and ``EMIT_BLOCK`` rays, is an intermediate and not
+    counted)."""
+    from tpu_path_tracer_torch.kernels.pair_sweep import EMIT_BLOCK
+
+    cells = 0
+    if name == "emit_pairbin":
+        o, n_bins, rows = before[0], before[3].shape[0], after
+        n, n_rows = o.shape[0], rows.ray.shape[0]
+        pairs = int((rows.ray >= 0).sum())
+        flops = n * n_bins * PAIR_SLAB_FLOPS + pairs * 9 + n * PAIR_INV_FLOPS
+        nbytes = n * 28 + n_bins * 24 + n_rows * 68 + n_rows // 32
+        cells = n_bins * -(-n // EMIT_BLOCK)
+    elif name == "emit_pair":
+        o, rows = before[0], after
+        n, n_rows = o.shape[0], rows.ray.shape[0]
+        pairs = int((rows.ray >= 0).sum())
+        flops = n + pairs * 9
+        nbytes = n * 40 + pairs * 8 + n_rows * 68 + n_rows // 32
+        cells = before[8] * -(-n // EMIT_BLOCK)
+    else:
+        rows = before[0]
+        n, n_rows = before[3].shape[0], rows.ray.shape[0]
+        pairs = int((rows.ray >= 0).sum())
+        flops = n_rows + n
+        nbytes = n_rows * 12 + (n * 16 if name == "pairbin_best"
+                                else n * 44)
+    return {"rays": n, "pairs": pairs, "rows": n_rows, "hist_cells": cells,
+            "flops": flops, "bytes": nbytes}
+
+
+def count_syncs(torch, ps, route, fn):
+    """Host syncs of one call of ``fn``, counted with torch.cuda's sync
+    debug mode (each sync warns once): (all of the call's, those from the
+    route's first emission on, the number of emission calls, and where
+    they were: {file:line: count})."""
+    import warnings
+
+    name = f"emit_{route}"
+    emit = getattr(ps, name)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def marked(*args):
+            caught.append("emission")
+            return emit(*args)
+
+        setattr(ps, name, marked)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            setattr(ps, name, emit)
+    marks = [i for i, w in enumerate(caught) if w == "emission"]
+    syncs = [i for i, w in enumerate(caught) if w != "emission"
+             and "called a synchronizing CUDA operation" in str(w.message)]
+    first = marks[0] if marks else len(caught)
+    sites = collections.Counter(
+        f"{os.path.basename(caught[i].filename)}:{caught[i].lineno}"
+        for i in syncs)
+    return len(syncs), sum(i > first for i in syncs), len(marks), dict(sites)
 
 
 @contextlib.contextmanager
@@ -1555,10 +1764,38 @@ def pair_dispatch(route):
         traversal.PAIR_DISPATCH = before
 
 
+def one_sign_tests(torch, ps, pair_dm, cid, segs, real, table):
+    """Tests of the real rows of segments ``segs`` against the triangles of
+    their chunks ``cid[segs]`` whose three edge volumes share a strict sign:
+    the tests edge_test (csrc/pair.cuh) carries past its sign check, found
+    with the plain version's arithmetic (kernels/pair_sweep._edge_tests)."""
+    dm = pair_dm.reshape(-1, ps.TRI_CHUNK, 8)
+    total = 0
+    for s in range(0, segs.numel(), ps.PLAIN_BLOCK):
+        sg = segs[s:s + ps.PLAIN_BLOCK]
+        tab = table[cid[sg].long()]
+        ray = [dm[sg, :, k, None] for k in range(6)]
+
+        def volume(k):
+            v = ray[0] * tab[:, None, k]
+            for i in range(1, 6):
+                v = v + ray[i] * tab[:, None, k + i]
+            return v
+
+        s0, s1, s2 = volume(0), volume(6), volume(12)
+        same = (((s0 > 0) & (s1 > 0) & (s2 > 0))
+                | ((s0 < 0) & (s1 < 0) & (s2 < 0)))
+        total += int((same & real[sg][:, :, None]).sum())
+    return total
+
+
 def pair_launch_work(torch, ps, route, args, out):
     """What one recorded launch of a pair-sweep wrapper needed, counted from
     its arguments: the FP32 operations of the row-triangle tests (and, for
-    the pair-bin sweep, the chunk slab tests) of its real rows, and the bytes
+    the pair-bin sweep, the chunk slab tests) of its real rows, each test
+    its edge volumes and sign check and only those whose volumes share a
+    sign the rest (:func:`one_sign_tests`; all of them when t_min <= 0,
+    where edge_test takes no shortcut), and the bytes
     of its segments' pair rows in and results out, the segment ids, and only
     the chunk tables (and chunk boxes) its segments read.
 
@@ -1575,7 +1812,9 @@ def pair_launch_work(torch, ps, route, args, out):
         row_tests = int((real & on[:, None]).sum()) * chunk
         slab_tests = boxes_read = 0
         tables_read = int(torch.unique(seg[on]).numel())
-        flops = row_tests * EDGE_FLOPS
+        full_tests = one_sign_tests(torch, ps, pair_dm, seg,
+                                    torch.nonzero(on)[:, 0], real, table)
+        flops = 0
     else:
         boxes = args[3]
         on = (seg >= 0) & (seg < -(-n_chunks // ps.PAIR_G))
@@ -1585,7 +1824,7 @@ def pair_launch_work(torch, ps, route, args, out):
         i_cur = torch.full_like(out[1], -1)
         swept = torch.zeros(n_chunks, dtype=torch.bool, device=seg.device)
         tested = torch.zeros_like(swept)
-        row_tests = slab_tests = 0
+        row_tests = slab_tests = full_tests = 0
         for c in range(ps.PAIR_G):
             cid = seg * ps.PAIR_G + c
             live = on & (cid < n_chunks)
@@ -1602,6 +1841,9 @@ def pair_launch_work(torch, ps, route, args, out):
             i_cur = torch.where(i >= 0, i, i_cur)
             slab_tests += int((real & live[:, None]).sum())
             row_tests += int((real & sweep[:, None]).sum()) * chunk
+            full_tests += one_sign_tests(torch, ps, pair_dm, cid,
+                                         torch.nonzero(sweep)[:, 0], real,
+                                         table)
             tested[cid[live]] = True
             swept[cid[sweep]] = True
         rows_on = on.repeat_interleave(chunk)
@@ -1610,13 +1852,17 @@ def pair_launch_work(torch, ps, route, args, out):
               "pairbin: the launch differs from its replay as gated pair "
               "sweeps")
         tables_read, boxes_read = int(swept.sum()), int(tested.sum())
-        flops = (row_tests * EDGE_FLOPS + slab_tests * PAIR_SLAB_FLOPS
+        flops = (slab_tests * PAIR_SLAB_FLOPS
                  + int((real & on[:, None]).sum()) * PAIR_INV_FLOPS)
+    if not t_min > 0:
+        full_tests = row_tests
+    flops += row_tests * EDGE_SIGN_FLOPS + full_tests * EDGE_REST_FLOPS
     nbytes = (int(on.sum()) * chunk * (64 + 8) + seg.shape[0] * 4
               + tables_read * ps.TABLE_ROWS * chunk * 4 + boxes_read * 24)
     return {"pairs": int(real.sum()), "rows": pair_dm.shape[0],
             "segments": seg.shape[0], "row_tests": row_tests,
-            "slab_tests": slab_tests, "tables_read": tables_read,
+            "slab_tests": slab_tests, "one_sign_tests": full_tests,
+            "tables_read": tables_read,
             "flops": flops, "bytes": nbytes}
 
 
@@ -1638,10 +1884,11 @@ def sweeps_against_plain(torch, ps, route, calls):
         torch.cuda.synchronize()
         plain_ms += (time.perf_counter() - start) * 1e3
         same_index &= bool((i_k == i_p).all())
-        bit_equal &= bool((t_k == t_p).all())
+        bit_equal &= bool((t_k.view(torch.int32)
+                           == t_p.view(torch.int32)).all())
         err = max(err, float((t_k - t_p).abs().max()))
         work = pair_launch_work(torch, ps, route, args, (t_k, i_k))
-        work["rays"] = int(torch.unique(ray).numel())
+        work["rays"] = int(torch.unique(ray[ray >= 0]).numel())
         ops = work["flops"] / PEAK_FP32_FLOPS * 1e3
         moved = work["bytes"] / PEAK_HBM_BYTES * 1e3
         ops_ms, bytes_ms = ops_ms + ops, bytes_ms + moved
@@ -1653,6 +1900,8 @@ def sweeps_against_plain(torch, ps, route, calls):
             "bound_ms": bound_ms / n,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": sum(w["flops"] for w in served) / n,
+            "one_sign_share": (sum(w["one_sign_tests"] for w in served)
+                               / max(1, sum(w["row_tests"] for w in served))),
             "bytes": sum(w["bytes"] for w in served) / n,
             "rays_served": [w["rays"] for w in served],
             "pairs": [w["pairs"] for w in served],
@@ -1777,14 +2026,28 @@ def pair_phase(torch, pt, device, smi):
         bvh_dev, _ = profile_device_ms(torch, bvh_call, 5,
                                        {"kernel": [TRAV_KERNEL]})
         for route, entry in entries.items():
-            calls = []
-            with recorded_sweep(route, calls):
+            calls, log = [], []
+            with recorded_sweep(route, calls), recorded_emission(route, log):
                 t_e, i_e = entry(o, d, bvh, tris, t_min, t0)
             torch.cuda.synchronize()
             check(calls, f"{route}: the entry point launched no sweep")
             # The kernel against its plain version, launch by launch.
             row = sweeps_against_plain(torch, ps, route, calls)
             n_launch = row["launches"]
+            # The emission and the reduction against the torch emission,
+            # call by call, and the entry point against the same route with
+            # the torch emission, lane by lane.
+            emitted = emission_against_plain(torch, ps, log)
+            with torch_emission():
+                t_p, i_p = entry(o, d, bvh, tris, t_min, t0)
+            same_lanes = bool((i_e == i_p).all()) and bool(
+                (t_e.view(torch.int32) == t_p.view(torch.int32)).all())
+            syncs, round_syncs, rounds, sync_sites = count_syncs(
+                torch, ps, route, lambda: entry(o, d, bvh, tris, t_min, t0))
+            with torch_emission():
+                torch_syncs, _, _, torch_sites = count_syncs(
+                    torch, ps, route,
+                    lambda: entry(o, d, bvh, tris, t_min, t0))
 
             # The entry point against the BVH kernel's answer.
             t_e, i_e = t_e.cpu().numpy(), i_e.cpu().numpy()
@@ -1798,27 +2061,62 @@ def pair_phase(torch, pt, device, smi):
                 entry(o, d, bvh, tris, t_min, t0)
 
             call_ms = time_events(torch, call, 5)
-            # Kernel and emission (every other device operation of the
-            # call) from one profiled run.
-            dev_ms, rows_prof = profile_device_ms(
-                torch, call, 3, {"kernel": [kernel_names[route]]})
+            # Kernel, the emission's kernels and every other device
+            # operation of the call (the tables, caps, scans; the pair
+            # route's candidates) from one profiled run; the same split
+            # with the torch emission.
+            groups = {"kernel": [kernel_names[route]],
+                      "emit_kernels": sorted({
+                          k for ks in EMIT_WRAPPER_KERNELS.values()
+                          for k in ks})}
+            dev_ms, rows_prof = profile_device_ms(torch, call, 3, groups)
+            with torch_emission():
+                torch_call_ms = time_events(torch, call, 5)
+                torch_dev, _ = profile_device_ms(torch, call, 3, groups)
             measured = bool(rows_prof)
+
+            def emission_ms(dev):
+                return (dev["all"] - dev["kernel"] if measured
+                        else "not measured")
+
             row.update(
                 route=route, tris=tris.count,
                 mask_mismatches=mask_diff, live_lanes=int(live.sum()),
                 retired_all_miss=bool((i_e[~live] == -1).all()),
+                same_as_torch_emission=same_lanes,
+                emission={k: {f: v[f] for f in ("calls", "equal",
+                                                  "max_abs_err", "plain_ms")}
+                          for k, v in emitted.items()},
+                host_syncs_per_call=syncs, host_syncs_in_rounds=round_syncs,
+                rounds=rounds, host_sync_sites=sync_sites,
+                host_syncs_torch_emission=torch_syncs,
+                host_sync_sites_torch_emission=torch_sites,
                 kernel_ms_per_launch=(dev_ms["kernel"] / n_launch
                                       if measured else "not measured"),
                 kernel_ms_per_call=dev_ms["kernel"],
-                emission_device_ms_per_call=(
-                    dev_ms["all"] - dev_ms["kernel"] if measured
-                    else "not measured"),
+                emission_device_ms_per_call=emission_ms(dev_ms),
+                emission_kernels_ms_per_call=dev_ms["emit_kernels"],
                 device_ms_per_call=dev_ms["all"], call_ms=call_ms,
+                torch_emission_device_ms_per_call=emission_ms(torch_dev),
+                torch_emission_call_ms=torch_call_ms,
                 bvh_kernel_ms=bvh_dev["kernel"], bvh_call_ms=bvh_call_ms)
             phase("pair_vs_plain", rays=TRAV_RAYS, card=smi, **row)
             name = f"{route} at {tris.count} triangles"
+            check(all(v["equal"] for v in emitted.values()),
+                  f"{name}: the emission on the card differs from the torch "
+                  f"emission: {row['emission']}")
+            check(same_lanes, f"{name}: the entry point differs from the "
+                  f"same route with the torch emission")
+            check(torch_syncs > 1, f"{name}: the sync counter saw "
+                  f"{torch_syncs} syncs in the torch emission")
+            check(syncs <= 1 if route == "pairbin"
+                  else round_syncs <= rounds,
+                  f"{name}: {syncs} host syncs in the call, {round_syncs} in "
+                  f"{rounds} rounds")
             check(row["same_index"],
                   f"{name}: kernel and plain indices differ")
+            check(row["t_bit_equal"],
+                  f"{name}: kernel t differs from plain in its bits")
             check(row["max_abs_err"] <= PAIR_T_TOL,
                   f"{name}: kernel t off plain by {row['max_abs_err']}")
             check(row["retired_all_miss"], f"{name}: a retired lane hit")
@@ -1868,6 +2166,8 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
         with pair_dispatch(route):
             torch.cuda.synchronize()
             ps.PAIR_LAUNCHES = ps.PAIRBIN_LAUNCHES = traversal.LAUNCHES = 0
+            for counter in EMIT_COUNTERS.values():
+                setattr(ps, counter, 0)
             start = time.perf_counter()
             fb = renderer.render_animation(frames)
             torch.cuda.synchronize()
@@ -1875,12 +2175,28 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
             counts = {"pairbin_sweep": ps.PAIRBIN_LAUNCHES,
                       "pair_sweep": ps.PAIR_LAUNCHES,
                       "bvh_closest_hit": traversal.LAUNCHES}
-            calls = []
-            with recorded_sweep(route, calls):
+            counts.update({w: getattr(ps, c)
+                           for w, c in EMIT_COUNTERS.items()})
+            calls, log = [], []
+            with recorded_sweep(route, calls), recorded_emission(route,
+                                                                 log):
                 got = one_frame()
         own = f"{route}_sweep"
+        mine = (own,) + EMIT_WRAPPERS[route]
         check(calls, f"{route}: a frame launched no sweep")
         row = sweeps_against_plain(torch, ps, route, calls)
+        emitted = emission_against_plain(torch, ps, log)
+        # The frame's emission calls replayed alone: their device time with
+        # the torch operations around the kernels (the histogram's zeros,
+        # its scan, the rows' allocation).
+        emit_name = EMIT_WRAPPERS[route][0]
+        replays = [b for name, b, _ in log if name == emit_name]
+        wrapper = getattr(ps, emit_name)
+        replay_ms, _ = profile_device_ms(
+            torch, lambda: [wrapper(*b) for b in replays], 2, {})
+        emitted[emit_name]["call_device_ms"] = (
+            replay_ms["all"] / len(replays)
+            if isinstance(replay_ms["all"], float) else replay_ms["all"])
         fb_np = fb.cpu().numpy()
         share = float(np.isclose(got, ref, rtol=KERNEL_TOL,
                                  atol=KERNEL_TOL).all(axis=-1).mean())
@@ -1896,10 +2212,18 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
               frame_launches=frame_launches, **row, **served,
               share_within_tol=share, tol=KERNEL_TOL,
               mean_rel_diff=mean_rel, mean_route=got.mean(0).tolist(),
-              mean_bvh=ref.mean(0).tolist())
-        check(counts[own] > 0, f"{route}: its kernel was never launched")
-        check(all(v == 0 for k, v in counts.items() if k != own),
+              mean_bvh=ref.mean(0).tolist(),
+              emission={k: {f: v[f] for f in ("calls", "equal",
+                                                "max_abs_err", "plain_ms",
+                                                "call_device_ms") if f in v}
+                        for k, v in emitted.items()})
+        check(all(counts[k] > 0 for k in mine),
+              f"{route}: a kernel of its route was never launched: {counts}")
+        check(all(v == 0 for k, v in counts.items() if k not in mine),
               f"{route}: another traversal kernel ran: {counts}")
+        check(all(v["equal"] for v in emitted.values()),
+              f"{route}: the emission on the card differs from the torch "
+              f"emission on the main path")
         if route == "pairbin":
             # One launch per bounce; a bounce whose rays reach no bin
             # launches nothing.
@@ -1907,6 +2231,8 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
                   f"pairbin: {counts[own]} launches in {frames} frames")
         check(row["same_index"], f"{route}: kernel and plain indices differ "
               f"on the main path's launches")
+        check(row["t_bit_equal"], f"{route}: kernel t differs from plain "
+              f"in its bits on the main path's launches")
         check(row["max_abs_err"] <= PAIR_T_TOL, f"{route}: kernel t off "
               f"plain by {row['max_abs_err']} on the main path's launches")
         check(np.isfinite(fb_np).all(), f"{route}: non-finite framebuffer")
@@ -1917,6 +2243,21 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
                     "plain_ms": row["plain_ms_per_launch"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "flops": row["flops"], "bytes": row["bytes"]}
+        for wrapper, em in emitted.items():
+            n_calls = em["calls"]
+            flops = sum(w["flops"] for w in em["work"]) / n_calls
+            nbytes = sum(w["bytes"] for w in em["work"]) / n_calls
+            ms, by = bound(flops, nbytes)
+            out[wrapper] = {"launches": counts[wrapper],
+                            "frame_launches": n_calls,
+                            "max_abs_err": em["max_abs_err"],
+                            "plain_ms": em["plain_ms"], "bound_ms": ms,
+                            "bound_by": by, "flops": flops, "bytes": nbytes,
+                            "hist_cells": sum(w["hist_cells"]
+                                              for w in em["work"]) / n_calls,
+                            "route": route}
+            if "call_device_ms" in em:
+                out[wrapper]["call_device_ms"] = em["call_device_ms"]
 
     order = (None, "pairbin", "pair", "pair", "pairbin", None)
     samples = {r: [] for r in order}
@@ -1927,22 +2268,29 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
     kernels = {None: TRAV_KERNEL, "pairbin": "pairbin_sweep_kernel",
                "pair": "pair_sweep_kernel"}
     for route, t in samples.items():
+        groups = {"kernel": [kernels[route]]}
+        if route:
+            groups.update({w: list(EMIT_WRAPPER_KERNELS[w])
+                           for w in EMIT_WRAPPERS[route]})
         with pair_dispatch(route):
-            dev_ms, rows = profile_device_ms(torch, one_frame, 2,
-                                             {"kernel": [kernels[route]]})
+            dev_ms, rows = profile_device_ms(torch, one_frame, 2, groups)
         ms = statistics.median(t)
         phase("pair_timing", route=route or "bvh",
               tris=scene.triangles.count, size=f"{cfg.width}x{cfg.height}",
               max_bounces=cfg.max_bounces, ms_per_frame=ms, ms_min=min(t),
               ms_max=max(t), frames=len(t),
               traversal_kernel_ms_per_frame=dev_ms["kernel"],
+              emission_kernels_ms_per_frame={
+                  w: dev_ms[w] for w in EMIT_WRAPPERS.get(route, ())},
               device_ms_per_frame=dev_ms["all"],
               device_busy_share=(dev_ms["all"] / ms if rows
                                  else "not measured"), card=smi)
         if route:
-            k = out[f"{route}_sweep"]
-            k["ms"] = (dev_ms["kernel"] / k["frame_launches"] if rows
-                       else "not measured")
+            for name, group in [(f"{route}_sweep", "kernel")] + [
+                    (w, w) for w in EMIT_WRAPPERS[route]]:
+                k = out[name]
+                k["ms"] = (dev_ms[group] / k["frame_launches"] if rows
+                           else "not measured")
     return out
 
 
@@ -2108,9 +2456,24 @@ def run():
          "plain_ms": pair_kernels[name]["plain_ms"],
          "bound_ms": pair_kernels[name]["bound_ms"],
          "bound_by": pair_kernels[name]["bound_by"], "library_ms": None,
-         "launches_per_frame": pair_kernels[name]["frame_launches"]}
+         "launches_per_frame": pair_kernels[name]["frame_launches"],
+         **ptxas[name]}
         for name, replaces in (("pairbin_sweep", PAIRBIN_REPLACES),
-                               ("pair_sweep", PAIR_REPLACES))]}))
+                               ("pair_sweep", PAIR_REPLACES))] + [
+        {"name": name, "route": "cuda", "source": EMIT_SOURCE,
+         "replaces": EMIT_REPLACES[name],
+         "launches": pair_kernels[name]["launches"],
+         "max_abs_err": pair_kernels[name]["max_abs_err"],
+         "ms": pair_kernels[name]["ms"],
+         "plain_ms": pair_kernels[name]["plain_ms"],
+         "bound_ms": pair_kernels[name]["bound_ms"],
+         "bound_by": pair_kernels[name]["bound_by"], "library_ms": None,
+         "launches_per_frame": pair_kernels[name]["frame_launches"],
+         "call_device_ms": pair_kernels[name].get("call_device_ms"),
+         "hist_cells": pair_kernels[name]["hist_cells"],
+         "kernels": {k: ptxas[k] for k in ptxas
+                     if k.split(".")[0] in EMIT_WRAPPER_KERNELS[name]}}
+        for name in EMIT_REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

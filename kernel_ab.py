@@ -5,8 +5,8 @@ at the main path's shapes, and check that they agree.
 Run from the repository root::
 
     python3 kernel_ab.py --tree old=_scratch/parent --tree new=. \\
-        [--tree NAME=DIR ...] [--kernel megakernels|traversal] [--bits] \\
-        [--reps 10] [--out DIR]
+        [--tree NAME=DIR ...] [--kernel megakernels|traversal|pairs] \\
+        [--bits] [--reps 10] [--out DIR]
 
 Each ``--tree NAME=DIR`` is a checkout root holding
 ``tpu_path_tracer_torch/csrc``: another commit's sources (a ``git
@@ -33,6 +33,19 @@ chip_smoke.py's: the 65,536-ray bundle at 81,920 and at 327,680 triangles
 path (phase 11's scene and frame 3, recorded from ``render_frame``).  Each
 tree's packing is timed too (CUDA events around its ``pack_bvh``).
 
+``--kernel pairs`` times each tree's two pair kernels through that tree's
+own ``pair_sweep`` / ``pairbin_sweep`` wrappers, on the launches this
+checkout's emission lays out for chip_smoke.py's 65,536-ray bundle at
+both mesh sizes (phase 15), for one 512x512 frame of the mesh main
+path through each pair route (phase 16's scene, frame 3) and for one
+1024x1024 frame at 327,680 triangles (the mesh timing's large frame,
+where the emission's histograms are largest); a case's
+launches are timed together and reported per case and per launch.  Then
+each tree's whole entry point (``pairbin_closest_hit``,
+``pair_closest_hit``) is timed on the bundles, and each route's frame
+through each tree's entry point, in turns (CUDA events, and the device
+time of every kernel of one call from torch.profiler).
+
 Each kernel is timed in turns: the trees in order, then in reverse order;
 each turn profiles ``--reps`` launches after two warm-up launches with
 torch.profiler (CUDA events when the profiler sees no device time), and
@@ -45,7 +58,7 @@ tree's forward radiance on the 512x512 frame and on chip_smoke.py phase
 from the first tree's; it also reports how far each backward's table
 gradients lie from the first tree's.  ``--bits`` with the traversal counts,
 for every tree and input, the lanes whose triangle index or any bit of t
-differs from the first tree's.  The last line is one JSON object with
+differs from the first tree's, and with the pairs the rows.  The last line is one JSON object with
 everything.  Imports nothing of JAX.
 """
 
@@ -92,6 +105,9 @@ def build_all(trees, build_root):
         report["traversal"] = next(
             _build.ptxas_report(log, k) for k in TRAVERSAL_KERNELS
             if f"{k}" in log)
+        for route, kernel in PAIR_KERNELS.items():
+            if kernel in log:
+                report[route] = _build.ptxas_report(log, kernel)
         libs[name] = (ctypes.CDLL(str(path)), report)
     return libs
 
@@ -186,8 +202,11 @@ def device_ms(torch, fn, kernel, reps):
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
              if e.device_type == DeviceType.CUDA
              and any(k in e.name for k in names)]
-    if len(times) == reps:
-        return times, "torch.profiler"
+    if times and len(times) % reps == 0:
+        # A call of several launches: the sum of its launches.
+        per = len(times) // reps
+        return [sum(times[i:i + per]) for i in range(0, len(times), per)], (
+            "torch.profiler")
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -200,10 +219,11 @@ def device_ms(torch, fn, kernel, reps):
     return times, "cuda events"
 
 
-def tree_package(name, tree, lib):
+def tree_package(name, tree, lib, submodule="traversal"):
     """The port's package of source tree ``tree``, imported as a module of
     its own (``kernel_ab_<name>``; the package imports itself only
-    relatively), with its kernels bound to ``lib``."""
+    relatively), with its kernels bound to ``lib``; returns its
+    ``kernels.<submodule>``."""
     import importlib.util
 
     pkg = os.path.join(tree, "tpu_path_tracer_torch")
@@ -216,7 +236,7 @@ def tree_package(name, tree, lib):
     spec.loader.exec_module(module)
     build = importlib.import_module(f"{alias}.kernels._build")
     build._lib = lib
-    return importlib.import_module(f"{alias}.kernels.traversal")
+    return importlib.import_module(f"{alias}.kernels.{submodule}")
 
 
 def traversal_inputs(torch, pt, device):
@@ -297,11 +317,164 @@ def traversal_ab(torch, pt, device, trees, libs, args, smi):
     return results, bits
 
 
+PAIR_KERNELS = {"pairbin": "pairbin_sweep_kernel", "pair": "pair_sweep_kernel"}
+
+
+def pair_inputs(torch, pt, device):
+    """chip_smoke.py's pair inputs: {case: (route, scene, meta or None,
+    rays or None, [sweep arguments of each launch])} for both routes on
+    the 65,536-ray bundle at both mesh sizes, on one 512x512 mesh
+    main-path frame (phase 16's scene and frame 3) and on one 1024x1024
+    frame at 327,680 triangles, the launches recorded from this
+    checkout's emission."""
+    import chip_smoke as cs
+    from tpu_path_tracer_torch.integrator.render import render_frame
+    from tpu_path_tracer_torch.kernels import pair_sweep as ps
+
+    t_min = pt.RenderConfig().t_min
+    entries = {"pairbin": ps.pairbin_closest_hit, "pair": ps.pair_closest_hit}
+    cases = {}
+    for sub in cs.MESH_SUBDIVISIONS:
+        scene, _ = cs.mesh_scene(pt, device, sub)
+        rays = tuple(torch.from_numpy(x).to(device) for x in cs.traversal_rays(
+            cs.TRAV_RAYS, sub, 0.8, scene.triangles.a.cpu().numpy()))
+        for route, entry in entries.items():
+            calls = []
+            with cs.recorded_sweep(route, calls):
+                entry(rays[0], rays[1], scene.bvh, scene.triangles, t_min,
+                      rays[2])
+            cases[f"{route}_bundle_{scene.triangles.count}"] = (
+                route, scene, None, rays, [c[0] for c in calls])
+    view = pt.Camera(eye=cs.MESH_EYE, center=[0, 0, 0]).view_matrix
+    for sub, scale, suffix in ((cs.MESH_SUBDIVISIONS[0], 1, ""),
+                               (cs.MESH_SUBDIVISIONS[1], 2, "_1024")):
+        scene, meta = cs.mesh_scene(pt, device, sub)
+        cfg = pt.RenderConfig(**cs.MESH_KW)
+        cfg = cfg.replace(width=scale * cfg.width, height=scale * cfg.height)
+        for route in entries:
+            calls = []
+            with cs.pair_dispatch(route), cs.recorded_sweep(route, calls):
+                render_frame(torch.zeros((cfg.width * cfg.height, 3),
+                                         device=device), 3, True, view,
+                             scene, meta, cfg)
+            cases[f"{route}_frame{suffix}"] = (
+                route, scene, (meta, cfg, view), None, [c[0] for c in calls])
+    return cases
+
+
+def call_ms(torch, fn, reps):
+    """Median ms of ``fn`` by CUDA events (after a warm-up call), and its
+    device ms per call summed over every kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    return statistics.median(wall), device
+
+
+def pairs_ab(torch, pt, device, trees, libs, args, smi):
+    """Each tree's two pair kernels, through that tree's own wrappers, in
+    turns on every input (the case's launches summed), with ``--bits`` the
+    rows that differ from the first tree's; then each tree's whole entry
+    point on the bundles and each route's 512x512 frame through each
+    tree's entry point, in turns."""
+    import chip_smoke as cs
+    from tpu_path_tracer_torch.kernels import traversal
+
+    names = list(trees)
+    first = names[0]
+    mods = {v: tree_package(v, trees[v], libs[v][0], "pair_sweep")
+            for v in names}
+    cases = pair_inputs(torch, pt, device)
+    results, bits, calls = [], {}, []
+    for case, (route, scene, frame, rays, launches) in cases.items():
+        samples = {v: [] for v in names}
+        how = set()
+        for v in names + names[::-1]:
+            sweep = getattr(mods[v], f"{route}_sweep")
+            t, method = device_ms(
+                torch, lambda: [sweep(*a) for a in launches],
+                PAIR_KERNELS[route], args.reps)
+            samples[v] += t
+            how.add(method)
+        for v in names:
+            t = samples[v]
+            row = {"tree": v, "case": case, "kernel": PAIR_KERNELS[route],
+                   "launches_per_case": len(launches),
+                   "rows": [a[0].shape[0] for a in launches][:32],
+                   "median_ms": statistics.median(t), "min_ms": min(t),
+                   "max_ms": max(t),
+                   "median_ms_per_launch": statistics.median(t) / len(
+                       launches), "samples": len(t),
+                   "timed_by": sorted(how),
+                   **libs[v][1].get(route, {}), "card": smi}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+        if args.bits:
+            outs = {v: [[x.cpu().numpy() for x in getattr(
+                mods[v], f"{route}_sweep")(*a)] for a in launches]
+                for v in names}
+            bits[case] = {v: int(sum(
+                ((i != i0) | (t.view("u4") != t0.view("u4"))).sum()
+                for (t, i), (t0, i0) in zip(outs[v], outs[first])))
+                for v in names if v != first}
+            print(json.dumps({"bits": case, "rows": sum(
+                a[0].shape[0] for a in launches),
+                "differing_rows": bits[case]}), flush=True)
+        # The whole entry point of each tree, in turns.
+        entry = {v: getattr(mods[v], f"{route}_closest_hit") for v in names}
+        timed = {v: [] for v in names}
+        if frame is None:
+            o, d, t0 = rays
+            t_min = pt.RenderConfig().t_min
+            for v in names + names[::-1]:
+                timed[v].append(call_ms(torch, lambda: entry[v](
+                    o, d, scene.bvh, scene.triangles, t_min, t0), args.reps))
+            what = "entry_point_call"
+        else:
+            meta, cfg, view = frame
+            for v in names + names[::-1]:
+                before = traversal._PAIR_ROUTES[route]
+                traversal._PAIR_ROUTES[route] = entry[v]
+                try:
+                    with cs.pair_dispatch(route):
+                        timed[v].append(call_ms(torch, lambda: cs.time_frames(
+                            torch, pt, device, scene, meta, cfg, view, 1),
+                            max(2, args.reps // 3)))
+                finally:
+                    traversal._PAIR_ROUTES[route] = before
+            what = "frame"
+        for v in names:
+            row = {"tree": v, "case": case, "what": what,
+                   "ms": statistics.median(x[0] for x in timed[v]),
+                   "ms_each_turn": [x[0] for x in timed[v]],
+                   "device_ms": statistics.median(x[1] for x in timed[v]),
+                   "card": smi}
+            calls.append(row)
+            print(json.dumps(row), flush=True)
+    return results, bits, calls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", required=True,
                     help="NAME=DIR, a checkout root")
-    ap.add_argument("--kernel", choices=("megakernels", "traversal"),
+    ap.add_argument("--kernel", choices=("megakernels", "traversal", "pairs"),
                     default="megakernels")
     ap.add_argument("--bits", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
@@ -335,6 +508,12 @@ def main():
           flush=True)
 
     device = torch.device("cuda", 0)
+    if args.kernel == "pairs":
+        results, bits, calls = pairs_ab(torch, pt, device, trees, libs, args,
+                                        smi)
+        print(json.dumps({"card": smi, "kernels": results, "bits": bits,
+                          "calls": calls}))
+        return
     if args.kernel == "traversal":
         results, bits = traversal_ab(torch, pt, device, trees, libs, args,
                                      smi)

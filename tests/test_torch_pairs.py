@@ -39,6 +39,7 @@ from tpu_path_tracer.scene import procedural as jproc
 
 import tpu_path_tracer_torch as pt
 from tpu_path_tracer_torch.core import rng as trng
+from tpu_path_tracer_torch.core import vecmath as vm
 from tpu_path_tracer_torch.core.types import Ray
 from tpu_path_tracer_torch.integrator.render import (path_trace_pixels,
                                                      pixel_grid)
@@ -54,11 +55,13 @@ ENTRY_POINTS = {"pairbin": ps.pairbin_closest_hit,
                 "pair": ps.pair_closest_hit}
 
 
-def _mesh_scene(mesh):
-    """One white mesh behind a median BVH, built by the JAX package and
-    carried to the port through numpy."""
+def _mesh_scene(mesh, copies=1):
+    """One white mesh (``copies`` times at the same place) behind a median
+    BVH, built by the JAX package and carried to the port through numpy."""
     b = tpt.SceneBuilder()
-    b.add_mesh(mesh, b.add_material("white", tpt.LAMBERTIAN, [0.7, 0.7, 0.7]))
+    white = b.add_material("white", tpt.LAMBERTIAN, [0.7, 0.7, 0.7])
+    for _ in range(copies):
+        b.add_mesh(mesh, white)
     jscene, meta = b.build(bvh="median")
     tscene = pt.scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
     return jscene, tscene, meta
@@ -478,89 +481,30 @@ def test_sweeps_refuse_other_devices():
 
 # ---------------------------------------------- the kernels' source on CPU
 
-# csrc/pair_sweep.cu keeps the row-triangle test, the chunk sweep and the
-# chunk slab test in __host__ __device__ code and leaves out the kernels
-# without nvcc.  These loops stand in for the two kernels' blocks: a segment
-# at a time, the pair-bin one with the block-wide vote as a loop over rows.
-HOST_SWEEPS = r"""
-#include <cstddef>
-#include "pair_sweep.cu"
-using namespace tpt;
-extern "C" void host_pair_sweep(
-    const float* dm, const float* o1, const int* seg_cid, const float* table,
-    int n_segs, int n_chunks, float t_min, float inf, float* t_out,
-    int* idx_out) {
-  for (int s = 0; s < n_segs; ++s) {
-    const int cid = seg_cid[s];
-    if (cid < 0 || cid >= n_chunks) continue;
-    const float* tab = table + (size_t)cid * PAIR_CHUNK_FLOATS;
-    for (int k = 0; k < PAIR_CHUNK; ++k) {
-      const int row = s * PAIR_CHUNK + k;
-      const PairRay r = load_pair_ray(dm, o1, row);
-      float t = r.bound;
-      int idx = -1;
-      chunk_sweep(tab, cid * PAIR_CHUNK, r, t_min, t, idx);
-      t_out[row] = idx >= 0 ? t : inf;
-      idx_out[row] = idx;
-    }
-  }
-}
-extern "C" void host_pairbin_sweep(
-    const float* dm, const float* o1, const int* seg_bid, const float* boxes,
-    const float* table, int n_segs, int n_bins, int n_chunks, float t_min,
-    float* t_out, int* idx_out) {
-  for (int s = 0; s < n_segs; ++s) {
-    const int bid = seg_bid[s];
-    if (bid < 0 || bid >= n_bins) continue;
-    PairRay r[PAIR_CHUNK];
-    float t[PAIR_CHUNK];
-    int idx[PAIR_CHUNK];
-    for (int k = 0; k < PAIR_CHUNK; ++k) {
-      r[k] = load_pair_ray(dm, o1, s * PAIR_CHUNK + k);
-      t[k] = r[k].bound;
-      idx[k] = -1;
-    }
-    for (int c = 0; c < PAIR_BIN_CHUNKS; ++c) {
-      const int cid = bid * PAIR_BIN_CHUNKS + c;
-      if (cid >= n_chunks) break;
-      bool any = false;
-      for (int k = 0; k < PAIR_CHUNK; ++k) {
-        any |= chunk_slab_hit(boxes + 6 * cid, r[k], pair_inv_dir(r[k]),
-                              t[k]);
-      }
-      if (!any) continue;
-      const float* tab = table + (size_t)cid * PAIR_CHUNK_FLOATS;
-      for (int k = 0; k < PAIR_CHUNK; ++k) {
-        chunk_sweep(tab, cid * PAIR_CHUNK, r[k], t_min, t[k], idx[k]);
-      }
-    }
-    for (int k = 0; k < PAIR_CHUNK; ++k) {
-      t_out[s * PAIR_CHUNK + k] = t[k];
-      idx_out[s * PAIR_CHUNK + k] = idx[k];
-    }
-  }
-}
-"""
-
-
+# csrc/pair_sweep.cu and csrc/pair_emit.cu keep their row code in
+# __host__ __device__ functions and, built without nvcc, leave out the
+# kernels and add host entry points that run each kernel's blocks and lanes
+# in order with the same functions.
 def build_host_sweeps(out_dir, csrc_dir):
-    """Compile HOST_SWEEPS with g++ against ``csrc_dir``; returns the loaded
-    library, or None without g++."""
+    """Compile ``csrc_dir``'s pair sources (the sweeps and the emission)
+    with g++ as they are; returns the loaded library, or None without
+    g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         return None
-    (out_dir / "host_sweeps.cpp").write_text(HOST_SWEEPS)
     # -ffp-contract=off: no a*b+c contraction, as nvcc's --fmad=false.
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I", str(csrc_dir), "-o",
+                    "-shared", "-fPIC", "-x", "c++", "-o",
                     str(out_dir / "host_sweeps.so"),
-                    str(out_dir / "host_sweeps.cpp")],
+                    str(csrc_dir / "pair_sweep.cu"),
+                    str(csrc_dir / "pair_emit.cu")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out_dir / "host_sweeps.so"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_pair_sweep.argtypes = [p, p, p, p, i, i, f, f, p, p]
-    lib.host_pairbin_sweep.argtypes = [p, p, p, p, p, i, i, i, f, p, p]
-    lib.host_pair_sweep.restype = lib.host_pairbin_sweep.restype = None
+    lib.tpt_pair_sweep_host.argtypes = [p, p, p, p, i, i, f, f, p, p]
+    lib.tpt_pairbin_sweep_host.argtypes = [p, p, p, p, p, i, i, i, f, p, p]
+    lib.tpt_pair_sweep_host.restype = None
+    lib.tpt_pairbin_sweep_host.restype = None
     return lib
 
 
@@ -580,6 +524,34 @@ def _with_dummy_segment(seg, dummy, *rows):
     return (seg,) + tuple(torch.cat([x, x[:ps.TRI_CHUNK]]) for x in rows)
 
 
+def _host_and_plain(host_sweeps, route, args):
+    """One launch's arguments through the kernels' code built for the CPU
+    and through the plain version: ((t, idx) of the build, (t, idx) of the
+    plain version)."""
+    pair_dm, pair_o1, seg = args[:3]
+    table, t_min = args[-2:]
+    n_chunks = table.shape[0]
+    n_bins = -(-n_chunks // ps.PAIR_G)
+    n_segs = seg.shape[0]
+    t = torch.full((n_segs * ps.TRI_CHUNK,), intersect.INF)
+    i = torch.full((n_segs * ps.TRI_CHUNK,), -1, dtype=torch.int32)
+    if route == "pair":
+        ref = ps.pair_sweep_plain(pair_dm, pair_o1, seg, table, t_min)
+        host_sweeps.tpt_pair_sweep_host(
+            pair_dm.data_ptr(), pair_o1.data_ptr(), seg.data_ptr(),
+            table.data_ptr(), n_segs, n_chunks, t_min, intersect.INF,
+            t.data_ptr(), i.data_ptr())
+    else:
+        boxes = args[3].contiguous()
+        ref = ps.pairbin_sweep_plain(pair_dm, pair_o1, seg, boxes, table,
+                                     t_min)
+        host_sweeps.tpt_pairbin_sweep_host(
+            pair_dm.data_ptr(), pair_o1.data_ptr(), seg.data_ptr(),
+            boxes.data_ptr(), table.data_ptr(), n_segs, n_bins, n_chunks,
+            t_min, t.data_ptr(), i.data_ptr())
+    return (t, i), ref
+
+
 @pytest.mark.parametrize("route", ["pair", "pairbin"])
 def test_pair_kernel_source_on_cpu(route, host_sweeps, monkeypatch):
     """The kernels' per-row code, built for the CPU, against the plain
@@ -592,29 +564,12 @@ def test_pair_kernel_source_on_cpu(route, host_sweeps, monkeypatch):
     calls = _recorded(monkeypatch, route, tscene, o, d, t0)
     hits = 0
     for args, _ in calls[:3]:
-        pair_dm, pair_o1, seg = args[:3]
-        table, t_min = args[-2:]
-        n_chunks = table.shape[0]
-        n_bins = -(-n_chunks // ps.PAIR_G)
-        seg, pair_dm, pair_o1 = _with_dummy_segment(
-            seg, n_chunks if route == "pair" else n_bins, pair_dm, pair_o1)
-        n_segs = seg.shape[0]
-        t = torch.full((n_segs * ps.TRI_CHUNK,), intersect.INF)
-        i = torch.full((n_segs * ps.TRI_CHUNK,), -1, dtype=torch.int32)
-        if route == "pair":
-            ref = ps.pair_sweep_plain(pair_dm, pair_o1, seg, table, t_min)
-            host_sweeps.host_pair_sweep(
-                pair_dm.data_ptr(), pair_o1.data_ptr(), seg.data_ptr(),
-                table.data_ptr(), n_segs, n_chunks, t_min, intersect.INF,
-                t.data_ptr(), i.data_ptr())
-        else:
-            boxes = args[3].contiguous()
-            ref = ps.pairbin_sweep_plain(pair_dm, pair_o1, seg, boxes, table,
-                                         t_min)
-            host_sweeps.host_pairbin_sweep(
-                pair_dm.data_ptr(), pair_o1.data_ptr(), seg.data_ptr(),
-                boxes.data_ptr(), table.data_ptr(), n_segs, n_bins, n_chunks,
-                t_min, t.data_ptr(), i.data_ptr())
+        n_chunks = args[-2].shape[0]
+        dummy = n_chunks if route == "pair" else -(-n_chunks // ps.PAIR_G)
+        seg, pair_dm, pair_o1 = _with_dummy_segment(args[2], dummy, args[0],
+                                                    args[1])
+        (t, i), ref = _host_and_plain(host_sweeps, route,
+                                      (pair_dm, pair_o1, seg) + args[3:])
         np.testing.assert_array_equal(i.numpy(), ref[1].numpy())
         np.testing.assert_array_equal(t.numpy(), ref[0].numpy())
         hits += int((i[:-ps.TRI_CHUNK] >= 0).sum())
@@ -623,15 +578,283 @@ def test_pair_kernel_source_on_cpu(route, host_sweeps, monkeypatch):
     assert hits > 300
 
 
+def _rows_of(o, d, bound):
+    """Pair rows (pair_dm, pair_o1) of float32 numpy rays, as the emission
+    lays them out."""
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    n = o.shape[0]
+    return (torch.cat([d, vm.cross(o, d), torch.from_numpy(bound)[:, None],
+                       torch.zeros((n, 1))], 1),
+            torch.cat([o, torch.ones((n, 1)), torch.zeros((n, 4))], 1))
+
+
+def _key_chunks(route, key, n_chunks):
+    """The chunks a segment of ``key`` reads."""
+    if route == "pair":
+        return [key]
+    return [c for c in range(key * ps.PAIR_G, (key + 1) * ps.PAIR_G)
+            if c < n_chunks]
+
+
+def _tie_share(route, args):
+    """Share of the rows with a hit below their bound whose least t over
+    their key's chunks is reached by two or more triangles."""
+    pair_dm, pair_o1, seg = args[:3]
+    table, t_min = args[-2:]
+    n_segs = seg.shape[0]
+    dm = pair_dm.reshape(n_segs, ps.TRI_CHUNK, 8)
+    o1 = pair_o1.reshape(n_segs, ps.TRI_CHUNK, 8)
+    tied = hit = 0
+    for s in range(n_segs):
+        rows = slice(s, s + 1)
+        tm = torch.cat([ps._edge_tests(dm[rows], o1[rows], table[c:c + 1],
+                                       t_min, dm[rows, :, 6])
+                        for c in _key_chunks(route, int(seg[s]),
+                                             table.shape[0])], dim=2)
+        least = tm.amin(dim=2, keepdim=True)
+        has = least[..., 0] < 1e30
+        hit += int(has.sum())
+        tied += int((has & ((tm == least).sum(dim=2) >= 2)).sum())
+    return tied / max(hit, 1)
+
+
+def _segment_case(case, route, monkeypatch):
+    """The launches of one segment case for ``route``: (list of sweep
+    arguments, a check of the results of the first)."""
+    mesh = jproc.icosphere(3, 0.8)     # 10 chunks: bins of 4, 4 and 2
+    _, tscene, _ = _mesh_scene(mesh, copies=2 if case == "tie" else 1)
+    if case == "single_row":
+        # Rows far above the mesh looking up reach no box; row 57 looks at
+        # triangle 261 (chunk 2) from outside.
+        tris = tscene.triangles
+        centre = ((tris.a[261] + tris.b[261] + tris.c[261]) / 3).numpy()
+        o = np.tile(np.float32([0.0, 0.0, 5.0]), (ps.TRI_CHUNK, 1))
+        o[:, :2] += np.linspace(-0.5, 0.5, ps.TRI_CHUNK,
+                                dtype=np.float32)[:, None]
+        d = np.tile(np.float32([0.0, 0.0, 1.0]), (ps.TRI_CHUNK, 1))
+        o[57] = 2.0 * centre
+        d[57] = -centre / np.linalg.norm(centre)
+        pair_dm, pair_o1 = _rows_of(o, d, np.full(ps.TRI_CHUNK, 1e9,
+                                                  np.float32))
+        packed = ps.pack_tris(tris)
+        reach = ps.slab_entries(pair_o1[:, None, :3],
+                                ps.inv_dir(pair_dm[:, :3])[:, None],
+                                pair_dm[:, None, 6], packed.cmin[None],
+                                packed.cmax[None]) < 1e30
+        assert reach[:, 2].sum() == 1 and reach[57, 2]
+        seg = torch.tensor([2 if route == "pair" else 0], dtype=torch.int32)
+        args = (pair_dm, pair_o1, seg)
+        if route == "pairbin":
+            args += (torch.cat([packed.cmin, packed.cmax], 1),)
+        args += (packed.table, T_MIN)
+
+        def check(t, i):
+            assert i[57] >= 0 and (i[torch.arange(ps.TRI_CHUNK) != 57]
+                                   == -1).all()
+        return [args], check
+    calls = _recorded(monkeypatch, route, tscene, *_small_bundle(512, 17))
+    launches = [args for args, _ in calls[:2]]
+    n_chunks = launches[0][-2].shape[0]
+    n_keys = n_chunks if route == "pair" else -(-n_chunks // ps.PAIR_G)
+    if case == "dummy":
+        args = launches[0]
+        seg, pair_dm, pair_o1 = _with_dummy_segment(args[2], n_keys,
+                                                    args[0], args[1])
+        seg, pair_dm, pair_o1 = _with_dummy_segment(seg, -1, pair_dm,
+                                                    pair_o1)
+        launches = [(pair_dm, pair_o1, seg) + args[3:]]
+
+        def check(t, i):
+            tail = slice(-2 * ps.TRI_CHUNK, None)
+            assert (i[tail] == -1).all() and (t[tail] == intersect.INF).all()
+            assert (i[:-2 * ps.TRI_CHUNK] >= 0).sum() > 50
+    elif case == "partial_bin":
+        # The keys of the last bin's chunks 8 and 9.
+        first = (n_chunks - n_chunks % ps.PAIR_G if route == "pair"
+                 else n_keys - 1)
+        last = list(range(first, n_keys))
+        assert n_chunks % ps.PAIR_G == 2 and len(last) == (
+            2 if route == "pair" else 1)
+        seg = launches[0][2]
+
+        def check(t, i):
+            rows = torch.isin(seg, torch.tensor(last, dtype=torch.int32))
+            assert rows.any()
+            assert (i.reshape(-1, ps.TRI_CHUNK)[rows] >= 0).sum() > 0
+    else:
+        assert n_chunks == 20
+        assert _tie_share(route, launches[0]) > 0.5
+
+        def check(t, i):
+            assert (i >= 0).sum() > 50
+    return launches, check
+
+
+@pytest.mark.parametrize("route", ["pair", "pairbin"])
+@pytest.mark.parametrize("case", ["dummy", "partial_bin", "single_row",
+                                  "tie"])
+def test_pair_kernel_segments_on_cpu(case, route, host_sweeps, monkeypatch):
+    """The kernels' code, built for the CPU, against the plain versions on
+    the segments the redesign must keep: dummy segments (ids past the last
+    key and -1) beside real ones, segments of a partial last bin (10 chunks:
+    bins of 4, 4 and 2), a segment in which a single row reaches a chunk
+    (the pair-bin vote), and a mesh added twice, where most hits are exact
+    ties between two triangles: every index and every bit of t."""
+    launches, check = _segment_case(case, route, monkeypatch)
+    for n, args in enumerate(launches):
+        (t, i), ref = _host_and_plain(host_sweeps, route, args)
+        np.testing.assert_array_equal(i.numpy(), ref[1].numpy())
+        np.testing.assert_array_equal(t.numpy(), ref[0].numpy())
+        if n == 0:
+            check(t, i)
+
+
+def _assert_same_rows(got, ref):
+    """Two emissions' rows, row for row: segment keys, the ray of each row,
+    and both row arrays bit for bit."""
+    np.testing.assert_array_equal(got.seg.numpy(), ref.seg.numpy())
+    np.testing.assert_array_equal(got.ray.numpy(), ref.ray.numpy())
+    for x, y in ((got.pair_dm, ref.pair_dm), (got.pair_o1, ref.pair_o1)):
+        np.testing.assert_array_equal(x.numpy().view(np.uint32),
+                                      y.numpy().view(np.uint32))
+
+
+def _pairbin_emission_args(tscene, o, d, t0):
+    """The pair-bin entry point's emission arguments (o, d, cap, bmin,
+    bmax) for float32 numpy rays."""
+    o, d, tb = ps._rays(*(torch.from_numpy(x) for x in (o, d, t0)))
+    packed = ps.pack_tris(tscene.triangles)
+    cap = torch.minimum(tb, ps.scene_diam(o, packed.cmin, packed.cmax))
+    return (o, d, cap) + ps.superchunk_boxes(packed.cmin, packed.cmax,
+                                             ps.PAIR_G)
+
+
+@pytest.mark.parametrize("case", ["partial_last_bin", "full_bins",
+                                  "empty", "partial_last_block"])
+def test_pairbin_emission_source_on_cpu(case, host_sweeps):
+    """csrc/pair_emit.cu's pair-bin emission built for the CPU (the same
+    Python steps as on the card, the host entry points in place of the
+    kernels) against the torch emission, row for row: which segment serves
+    which bin, the ray of each row and both row arrays bit for bit; then
+    the reduction to rays against its plain version on the sweep's rows.
+    Icosphere 3 has 10 chunks, so its last bin holds 2; icosphere 4 has 10
+    full bins; the empty case's rays reach no box; 300 rays leave the last
+    256-ray histogram cell partial."""
+    sub = 4 if case == "full_bins" else 3
+    _, tscene, _ = _mesh_scene(jproc.icosphere(sub, 0.8))
+    n_rays = 300 if case == "partial_last_block" else 512
+    o, d, t0 = _small_bundle(n_rays, seed=19)
+    if case == "empty":
+        o[:] = [0.0, 0.0, 3.0]
+        d[:] = [0.0, 0.0, 1.0]
+    args = _pairbin_emission_args(tscene, o, d, t0)
+    lib = ps._EmitLib(host_sweeps, "_host")
+    got = ps._emit_pairbin_on(lib, *args)
+    ref = ps.emit_pairbin_plain(*args)
+    _assert_same_rows(got, ref)
+    if case == "empty":
+        assert got.ray.shape[0] == 0
+        return
+    assert (got.ray >= 0).sum() > n_rays
+    assert (got.seg == args[3].shape[0] - 1).any()   # the last bin
+    assert (got.pair_o1[got.ray < 0] == 0).all()
+    assert (got.pair_o1[got.ray >= 0, 3] == 1).all()
+    packed = ps.pack_tris(tscene.triangles)
+    t_row, i_row = ps.pairbin_sweep_plain(
+        got.pair_dm, got.pair_o1, got.seg,
+        torch.cat([packed.cmin, packed.cmax], 1), packed.table, T_MIN)
+    tb = torch.from_numpy(t0)
+    n = tb.shape[0]
+    t_out = torch.empty(n)
+    i_out = torch.empty(n, dtype=torch.int64)
+    ps._best_on(lib, got, t_row, i_row, n, False, t_best0=tb, t_out=t_out,
+                i_out=i_out)
+    t_ref, i_ref = ps.pairbin_best_plain(got, t_row, i_row, tb)
+    np.testing.assert_array_equal(i_out.numpy(), i_ref.numpy())
+    np.testing.assert_array_equal(t_out.numpy(), t_ref.numpy())
+    assert (i_ref >= 0).sum() > 100
+
+
+def test_pair_emission_source_on_cpu(host_sweeps, monkeypatch):
+    """csrc/pair_emit.cu's pair-round emission and advance built for the
+    CPU against the torch ones, round by round, on the states of a real
+    ``pair_closest_hit`` call over icosphere 3 (10 chunks): the rows row
+    for row and bit for bit, then the state after the advance (running
+    best, index, candidates taken) equal; the last round emits nothing in
+    both."""
+    hits = _check_pair_emission(host_sweeps, monkeypatch, 512)
+    assert hits[0] > 50 and all(h > 0 for h in hits[1:])
+
+
+def test_pair_emission_partial_block_on_cpu(host_sweeps, monkeypatch):
+    """The same with 300 rays: the last 256-ray histogram cell partial."""
+    hits = _check_pair_emission(host_sweeps, monkeypatch, 300)
+    assert hits[0] > 50
+
+
+def _check_pair_emission(host_sweeps, monkeypatch, n_rays):
+    """The checks of the pair emission tests on ``n_rays`` rays; returns
+    the hits found by each swept round's advance."""
+    _, tscene, _ = _mesh_scene(jproc.icosphere(3, 0.8))
+    o, d, t0 = _small_bundle(n_rays, seed=23)
+    rounds = []
+    emit, advance = ps.emit_pair, ps.pair_advance
+
+    def recording_emit(*args):
+        rows = emit(*args)
+        rounds.append([[x.clone() if torch.is_tensor(x) else x
+                        for x in args], rows])
+        return rows
+
+    def recording_advance(rows, t_row, i_row, *state):
+        rounds[-1].append((t_row, i_row))
+        advance(rows, t_row, i_row, *state)
+
+    monkeypatch.setattr(ps, "emit_pair", recording_emit)
+    monkeypatch.setattr(ps, "pair_advance", recording_advance)
+    ps.pair_closest_hit(torch.from_numpy(o), torch.from_numpy(d), tscene.bvh,
+                        tscene.triangles, T_MIN, torch.from_numpy(t0))
+    assert len(rounds) >= 3 and rounds[-1][1].ray.shape[0] == 0
+    lib = ps._EmitLib(host_sweeps, "_host")
+    hits = []
+    for args, ref, *swept in rounds:
+        got = ps._emit_pair_on(lib, *args)
+        _assert_same_rows(got, ref)
+        if not swept:
+            continue
+        t_row, i_row = swept[0]
+        o_, d_, t_best, taken, counts, start, chunk, entry, _ = args
+        plain = [t_best.clone(), torch.full_like(t_best, -1,
+                                                 dtype=torch.int64),
+                 taken.clone()]
+        host = [x.clone() for x in plain]
+        ps.pair_advance_plain(ref, t_row, i_row, plain[0], plain[1],
+                              plain[2], counts, start, entry)
+        ps._best_on(lib, got, t_row, i_row, t_best.shape[0], True,
+                    t_out=host[0], i_out=host[1], counts=counts, start=start,
+                    entry=entry, taken=host[2])
+        for x, y in zip(host, plain):
+            np.testing.assert_array_equal(x.numpy(), y.numpy())
+        hits.append(int((host[1] >= 0).sum()))
+    return hits
+
+
 # ----------------------------------------------------------------- on card
+
+
+def _rows_on_cpu(rows):
+    """The rows of an emission, on the CPU."""
+    return ps.PairRows(*(x.cpu() for x in rows))
 
 
 @pytest.mark.cuda
 def test_cuda_pair_sweeps_match_plain_versions(monkeypatch):
     """Both CUDA kernels against their plain versions on the card, on the
     pair arrays of a real emission: the same index on every row, t within
-    1e-5, one counted launch per call; and a CUDA tensor never takes the
-    plain version."""
+    1e-5, one counted launch per call; the emission's kernels against the
+    torch emission row for row and bit for bit; each entry point against
+    the same route with the torch emission, every index and every bit of
+    t; and a CUDA tensor never takes the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run python3 chip_smoke.py there)")
     b = pt.SceneBuilder()
@@ -643,14 +866,37 @@ def test_cuda_pair_sweeps_match_plain_versions(monkeypatch):
                          ("pairbin", ps.pairbin_sweep_plain)):
         rec = _Recorder(getattr(ps, f"{route}_sweep"))
         monkeypatch.setattr(ps, f"{route}_sweep", rec)
+        emitted = []
+        emit = getattr(ps, f"emit_{route}")
+
+        def recording_emit(*args, emit=emit):
+            emitted.append(([x.clone() if torch.is_tensor(x) else x
+                             for x in args], emit(*args)))
+            return emitted[-1][1]
+
+        monkeypatch.setattr(ps, f"emit_{route}", recording_emit)
         before = ps.PAIR_LAUNCHES + ps.PAIRBIN_LAUNCHES
-        ENTRY_POINTS[route](o, d, scene.bvh, scene.triangles, T_MIN, t0)
+        t, i = ENTRY_POINTS[route](o, d, scene.bvh, scene.triangles, T_MIN,
+                                   t0)
         torch.cuda.synchronize()
         assert ps.PAIR_LAUNCHES + ps.PAIRBIN_LAUNCHES == before + len(
             rec.calls)
-        for args, (t, idx) in rec.calls:
+        for args, (tk, idx) in rec.calls:
             tp, ip = plain(*args)
             np.testing.assert_array_equal(idx.cpu().numpy(),
                                           ip.cpu().numpy())
-            np.testing.assert_allclose(t.cpu().numpy(), tp.cpu().numpy(),
+            np.testing.assert_allclose(tk.cpu().numpy(), tp.cpu().numpy(),
                                        rtol=0, atol=KERNEL_T_TOL)
+        for args, rows in emitted:
+            ref = getattr(ps, f"emit_{route}_plain")(*args)
+            _assert_same_rows(_rows_on_cpu(rows), _rows_on_cpu(ref))
+        monkeypatch.setattr(ps, f"emit_{route}", emit)
+        for name in ("emit_pairbin", "emit_pair", "pairbin_best",
+                     "pair_advance"):
+            monkeypatch.setattr(ps, name, getattr(ps, f"{name}_plain"))
+        tt, it = ENTRY_POINTS[route](o, d, scene.bvh, scene.triangles,
+                                     T_MIN, t0)
+        monkeypatch.undo()
+        np.testing.assert_array_equal(i.cpu().numpy(), it.cpu().numpy())
+        np.testing.assert_array_equal(t.cpu().numpy().view(np.uint32),
+                                      tt.cpu().numpy().view(np.uint32))

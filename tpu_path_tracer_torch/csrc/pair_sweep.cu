@@ -7,9 +7,8 @@
 // of the BVH-preorder triangle array (pair sweep) or with bins of 4
 // consecutive chunks (pair-bin sweep); the pairs are sorted by chunk or bin
 // and laid out so that every 128-row segment serves one chunk or one bin
-// (kernels/pair_sweep.py does that with torch.sort and scatters, as the JAX
-// package does it outside its kernels).  Each row is tested against all 128
-// triangles of its chunk in edge-function (Plücker) form:
+// (pair_emit.cu on the card).  Each row is tested against the triangles of
+// its chunk in edge-function (Plücker) form (pair.cuh edge_test):
 //
 //   s_k = [d, o x d] . e_k   (k = 0, 1, 2: edges (b,c), (c,a), (a,b))
 //   tn  = [o, 1] . tcol,   den = s0 + s1 + s2,   t = tn * (1 / den)
@@ -21,125 +20,152 @@
 // 6-7, the index planted as a float in a spare table row, the four
 // segments per grid step, the VMEM-resident table and its 640-chunk limit.
 //
-// Design: one block of 128 threads per segment, one thread per pair row.
-// The block copies the segment's chunk table (22 rows x 128 triangles,
-// 11 KB) into shared memory once with 16-byte loads; each thread keeps its
-// ray in registers and loops over the 128 triangles in index order, every
-// thread of a warp reading the same shared word (a broadcast, no bank
-// conflict).  A sequential loop with a strict `<` against the running best
-// gives the least t and the least index among equal t.  The pair-bin kernel
-// does this for the bin's four chunks in order: a slab test of each row
-// against the chunk's box at the row's running best, a block-wide vote
-// (__syncthreads_or) whether any row can still hit the chunk, and only then
-// the copy and the sweep; the running best carries over chunks.  A segment
-// whose id is the dummy returns at once, so the wrapper allocates outputs
-// initialised to "no hit".
+// What bounds them on this card: FP32 issue.  A row-triangle test is 33
+// products and sums and 6 sign compares, and 20 operations more (the
+// numerator, the division, the acceptance) when its three edge volumes
+// share a sign, against 64 bytes of row in and 8 out per 128 tests.  The products are IEEE-rounded
+// one by one in a fixed order (--fmad=false, no --use_fast_math, a true
+// division) so that the plain versions in kernels/pair_sweep.py round alike.
+// The design cuts the instructions around those operations:
 //
-// What bounds it on this card: FP32 operations.  A row-triangle test is 53
-// operations on 22 shared words, against 64 bytes of row in and 8 out per
-// 128 tests, so the sweep is compute-bound by two orders of magnitude; the
-// products are IEEE-rounded one by one in a fixed order (built with
-// --fmad=false, no --use_fast_math) so that the plain version in
-// kernels/pair_sweep.py rounds alike.  With FMA contraction the same loop
-// would issue about half as many multiplies and adds; that is later work,
-// with a tolerance.
+// * The chunk table is staged in shared memory triangle-major, 24 floats a
+//   triangle (pair.cuh stage_offset), so a triangle is six float4 loads
+//   that every lane of a warp reads at once (a broadcast), not 22 scalar
+//   loads 128 floats apart.
+// * edge_test rejects a row whose three edge volumes do not share a strict
+//   sign before the numerator and the division: the acceptance needs it, so
+//   no result changes, and most tests stop there.
+// * One block of 512 threads serves a segment: each row's 128 triangles
+//   are split into 4 parts of 32 (thread / 128 picks the part, so each warp
+//   holds one part of 32 rows and its lanes read the same triangle at
+//   once), and the parts' results are folded in order under the tie rule
+//   (least t, then least index), which is what one loop in index order
+//   with a strict `<` keeps.  Chains of 32 dependent tests instead of 128,
+//   and 64 warps an SM: the launches of the pair route are small (a few
+//   hundred segments), and both kernels wait on latency more than on
+//   issue.
+// * pairbin_sweep_kernel carries each row's running best over the bin's
+//   four chunks.  A chunk is swept when some row's slab test at its running
+//   best passes: __syncthreads_or over the block, exactly the segment's 128
+//   rows (a finer vote would change bits: rounding lets a row hit a
+//   triangle whose box its own slab test missed).  The chunk is then copied
+//   into the stage as pair_sweep_kernel copies it; a copy of the next chunk
+//   overlapped with the sweep (cp.async into a second stage) was measured
+//   and saved nothing.
 //
-// Built without nvcc (a plain C++ compiler), this file compiles the per-row
-// functions for the CPU and leaves out the kernels and their entry points.
+// Segments whose id is outside [0, keys) are dummies and return at once;
+// the wrapper allocates outputs initialised to "no hit".
+//
+// Built without nvcc (a plain C++ compiler), this file compiles the row
+// code and host entry points that run each kernel's blocks, rows and parts
+// in order on the CPU with the same functions (tpt_pair_sweep_host,
+// tpt_pairbin_sweep_host), and leaves out the kernels.
 
-#include "tracer.cuh"
+#include "pair.cuh"
 
 namespace tpt {
 
-constexpr int PAIR_CHUNK = 128;      // triangles per chunk, rows per segment
-constexpr int PAIR_TABLE_ROWS = 22;  // e0 (6), e1 (6), e2 (6), -n (3), n.a
-constexpr int PAIR_CHUNK_FLOATS = PAIR_TABLE_ROWS * PAIR_CHUNK;
-constexpr int PAIR_BIN_CHUNKS = 4;   // chunks per bin (PAIR_G)
+constexpr int PAIR_SPLIT = 4;  // threads per row, each a part of the chunk
+constexpr int PAIR_PART = PAIR_CHUNK / PAIR_SPLIT;  // triangles per part
+constexpr int SEG_THREADS = PAIR_CHUNK * PAIR_SPLIT;  // a segment's block
 
-// One pair row: pair_dm [P, 8] holds d, o x d, the row's bound and a zero;
-// pair_o1 [P, 8] holds o, 1 and zeros.
-struct PairRay {
-  float dx, dy, dz, mx, my, mz, bound, ox, oy, oz;
-};
-
-TPT_HD PairRay load_pair_ray(const float* dm, const float* o1, int row) {
-  const float* a = dm + 8 * row;
-  const float* b = o1 + 8 * row;
-  PairRay r;
-  r.dx = a[0]; r.dy = a[1]; r.dz = a[2];
-  r.mx = a[3]; r.my = a[4]; r.mz = a[5];
-  r.bound = a[6];
-  r.ox = b[0]; r.oy = b[1]; r.oz = b[2];
-  return r;
+// Part `part` of a row: the row against staged triangles [32 part, 32 part
+// + 32) of chunk cid, from `bound`.
+TPT_HD void sweep_part(const float* stage, int cid, int part,
+                       const PairRay& r, float t_min, float bound, float& t,
+                       int& idx) {
+  sweep_triangles(stage, part * PAIR_PART, (part + 1) * PAIR_PART,
+                  cid * PAIR_CHUNK, r, t_min, bound, t, idx);
 }
 
-// [d, o x d] . rows k .. k + 5 of one triangle's column, summed left to
-// right.  T points at the triangle's column; table rows are PAIR_CHUNK
-// floats apart.
-TPT_HD float edge_volume(const float* T, int k, const PairRay& r) {
-  float s = r.dx * T[(k + 0) * PAIR_CHUNK];
-  s = s + r.dy * T[(k + 1) * PAIR_CHUNK];
-  s = s + r.dz * T[(k + 2) * PAIR_CHUNK];
-  s = s + r.mx * T[(k + 3) * PAIR_CHUNK];
-  s = s + r.my * T[(k + 4) * PAIR_CHUNK];
-  s = s + r.mz * T[(k + 5) * PAIR_CHUNK];
-  return s;
+// A chunk table staged by one thread (the host's copy).
+inline void stage_chunk_host(float* stage, const float* table, int cid) {
+  for (int e = 0; e < PAIR_STAGE_FLOATS; ++e) stage[e] = 0.0f;
+  for (int e = 0; e < PAIR_CHUNK_FLOATS; ++e) {
+    stage[stage_offset(e)] = table[(long long)cid * PAIR_CHUNK_FLOATS + e];
+  }
 }
 
-// The test of one row against one triangle: true, with t, when the ray hits
-// the triangle at t in [t_min, bound).
-TPT_HD bool edge_test(const float* T, const PairRay& r, float t_min,
-                      float bound, float& t) {
-  const float s0 = edge_volume(T, 0, r);
-  const float s1 = edge_volume(T, 6, r);
-  const float s2 = edge_volume(T, 12, r);
-  float tn = r.ox * T[18 * PAIR_CHUNK];
-  tn = tn + r.oy * T[19 * PAIR_CHUNK];
-  tn = tn + r.oz * T[20 * PAIR_CHUNK];
-  tn = tn + T[21 * PAIR_CHUNK];
-  const float den = (s0 + s1) + s2;
-  const float inv = 1.0f / den;
-  t = tn * inv;
-  return fabsf(den) >= DET_EPS && t >= t_min && t < bound &&
-         s0 * inv >= t_min && s1 * inv >= t_min && s2 * inv >= t_min;
+// A row's sweep of chunk cid, the parts one after another and folded in
+// order (the host's loop over a block's parts).
+inline void sweep_chunk_host(const float* stage, int cid, const PairRay& r,
+                             float t_min, float& t, int& idx) {
+  const float bound = t;
+  for (int part = 0; part < PAIR_SPLIT; ++part) {
+    float tp;
+    int ip;
+    sweep_part(stage, cid, part, r, t_min, bound, tp, ip);
+    merge_best(tp, ip, t, idx);
+  }
 }
 
-// One row against the 128 triangles of a chunk table, in index order;
-// `base` is the chunk's first global triangle index.  Tightens t_best and
-// sets idx on every strictly closer hit.
-TPT_HD void chunk_sweep(const float* table, int base, const PairRay& r,
-                        float t_min, float& t_best, int& idx) {
-  for (int j = 0; j < PAIR_CHUNK; ++j) {
-    float t;
-    if (edge_test(table + j, r, t_min, t_best, t)) {
-      t_best = t;
-      idx = base + j;
+}  // namespace tpt
+
+// Host entry points, bound with ctypes by the tests: each kernel's blocks,
+// rows and parts run one after another on the CPU.  Arguments as the C
+// entry points below.
+extern "C" void tpt_pair_sweep_host(const float* dm, const float* o1,
+                                    const int* seg_cid, const float* table,
+                                    int n_segs, int n_chunks, float t_min,
+                                    float inf, float* t_out, int* idx_out) {
+  using namespace tpt;
+  static float stage[PAIR_STAGE_FLOATS];
+  for (int s = 0; s < n_segs; ++s) {
+    const int cid = seg_cid[s];
+    if (cid < 0 || cid >= n_chunks) continue;
+    stage_chunk_host(stage, table, cid);
+    for (int k = 0; k < PAIR_CHUNK; ++k) {
+      const long long row = (long long)s * PAIR_CHUNK + k;
+      const PairRay r = load_pair_ray(dm, o1, row);
+      float t = r.bound;
+      int idx = -1;
+      sweep_chunk_host(stage, cid, r, t_min, t, idx);
+      t_out[row] = idx >= 0 ? t : inf;
+      idx_out[row] = idx;
     }
   }
 }
 
-// sign(d) / max(|d|, 1e-12) per axis: no infinity, so no NaN slab.
-TPT_HD V3 pair_inv_dir(const PairRay& r) {
-  return v3((r.dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(r.dx), 1e-12f),
-            (r.dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(r.dy), 1e-12f),
-            (r.dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(r.dz), 1e-12f));
+extern "C" void tpt_pairbin_sweep_host(const float* dm, const float* o1,
+                                       const int* seg_bid,
+                                       const float* boxes,
+                                       const float* table, int n_segs,
+                                       int n_bins, int n_chunks, float t_min,
+                                       float* t_out, int* idx_out) {
+  using namespace tpt;
+  static float stage[PAIR_STAGE_FLOATS];
+  static PairRay r[PAIR_CHUNK];
+  static V3 iv[PAIR_CHUNK];
+  static float t[PAIR_CHUNK];
+  static int idx[PAIR_CHUNK];
+  for (int s = 0; s < n_segs; ++s) {
+    const int bid = seg_bid[s];
+    if (bid < 0 || bid >= n_bins) continue;
+    for (int k = 0; k < PAIR_CHUNK; ++k) {
+      r[k] = load_pair_ray(dm, o1, (long long)s * PAIR_CHUNK + k);
+      iv[k] = pair_inv_dir(r[k]);
+      t[k] = r[k].bound;
+      idx[k] = -1;
+    }
+    for (int c = 0; c < PAIR_BIN_CHUNKS; ++c) {
+      const int cid = bid * PAIR_BIN_CHUNKS + c;
+      if (cid >= n_chunks) break;  // the last bin may be partial
+      bool any = false;
+      for (int k = 0; k < PAIR_CHUNK; ++k) {
+        any = chunk_slab_hit(boxes + 6 * cid, r[k], iv[k], t[k]) || any;
+      }
+      if (!any) continue;
+      stage_chunk_host(stage, table, cid);
+      for (int k = 0; k < PAIR_CHUNK; ++k) {
+        sweep_chunk_host(stage, cid, r[k], t_min, t[k], idx[k]);
+      }
+    }
+    for (int k = 0; k < PAIR_CHUNK; ++k) {
+      t_out[(long long)s * PAIR_CHUNK + k] = t[k];
+      idx_out[(long long)s * PAIR_CHUNK + k] = idx[k];
+    }
+  }
 }
-
-// Slab test of a row against a chunk box (min xyz, max xyz) at the row's
-// running best: can the row still hit something in the chunk?
-TPT_HD bool chunk_slab_hit(const float* box, const PairRay& r, V3 iv,
-                           float t_cur) {
-  const float t0x = (box[0] - r.ox) * iv.x, t1x = (box[3] - r.ox) * iv.x;
-  const float t0y = (box[1] - r.oy) * iv.y, t1y = (box[4] - r.oy) * iv.y;
-  const float t0z = (box[2] - r.oz) * iv.z, t1z = (box[5] - r.oz) * iv.z;
-  const float tlo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                          fminf(t0z, t1z));
-  const float thi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fmaxf(t0z, t1z));
-  return thi >= fmaxf(tlo, 0.0f) && tlo <= t_cur;
-}
-
-}  // namespace tpt
 
 #ifdef __CUDACC__
 
@@ -147,39 +173,39 @@ namespace {
 
 using namespace tpt;
 
-// The block's copy of one chunk table into shared memory, 16 bytes a
-// thread; the caller synchronizes.
-__device__ __forceinline__ void load_chunk(float* sh, const float* table,
-                                           int cid) {
-  const float4* src = reinterpret_cast<const float4*>(
-      table + (size_t)cid * PAIR_CHUNK_FLOATS);
-  float4* dst = reinterpret_cast<float4*>(sh);
-  for (int i = threadIdx.x; i < PAIR_CHUNK_FLOATS / 4; i += blockDim.x) {
-    dst[i] = __ldg(src + i);
+// The block's copy of chunk cid's table into the stage, triangle-major.
+// The two padding floats of a staged triangle are loaded with it and never
+// used, so they are left unset.
+__device__ __forceinline__ void stage_chunk(float* stage, const float* table,
+                                            int cid) {
+  const float* src = table + (size_t)cid * PAIR_CHUNK_FLOATS;
+  for (int e = threadIdx.x; e < PAIR_CHUNK_FLOATS; e += SEG_THREADS) {
+    stage[stage_offset(e)] = __ldg(src + e);
   }
 }
 
-__global__ void __launch_bounds__(PAIR_CHUNK)
-pair_sweep_kernel(const float* __restrict__ dm, const float* __restrict__ o1,
-                  const int* __restrict__ seg_cid,
-                  const float* __restrict__ table, int n_chunks, float t_min,
-                  float inf, float* __restrict__ t_out,
-                  int* __restrict__ idx_out) {
-  __shared__ __align__(16) float sh[PAIR_CHUNK_FLOATS];
-  const int cid = seg_cid[blockIdx.x];
-  if (cid < 0 || cid >= n_chunks) return;  // dummy segment
-  load_chunk(sh, table, cid);
+// This thread's part of a row's sweep of the staged chunk cid, the four
+// parts exchanged through shared memory and folded in order into (t, idx)
+// by every thread of the row.
+__device__ __forceinline__ void sweep_chunk(const float* stage, int cid,
+                                            int part, int k,
+                                            const PairRay& r, float t_min,
+                                            float (*part_t)[PAIR_CHUNK],
+                                            int (*part_i)[PAIR_CHUNK],
+                                            float& t, int& idx) {
+  float tp;
+  int ip;
+  sweep_part(stage, cid, part, r, t_min, t, tp, ip);
+  part_t[part][k] = tp;
+  part_i[part][k] = ip;
   __syncthreads();
-  const int row = blockIdx.x * PAIR_CHUNK + threadIdx.x;
-  const PairRay r = load_pair_ray(dm, o1, row);
-  float t = r.bound;
-  int idx = -1;
-  chunk_sweep(sh, cid * PAIR_CHUNK, r, t_min, t, idx);
-  t_out[row] = idx >= 0 ? t : inf;
-  idx_out[row] = idx;
+#pragma unroll
+  for (int q = 0; q < PAIR_SPLIT; ++q) {
+    merge_best(part_t[q][k], part_i[q][k], t, idx);
+  }
 }
 
-__global__ void __launch_bounds__(PAIR_CHUNK)
+__global__ void __launch_bounds__(SEG_THREADS)
 pairbin_sweep_kernel(const float* __restrict__ dm,
                      const float* __restrict__ o1,
                      const int* __restrict__ seg_bid,
@@ -187,26 +213,58 @@ pairbin_sweep_kernel(const float* __restrict__ dm,
                      const float* __restrict__ table, int n_bins,
                      int n_chunks, float t_min, float* __restrict__ t_out,
                      int* __restrict__ idx_out) {
-  __shared__ __align__(16) float sh[PAIR_CHUNK_FLOATS];
+  __shared__ __align__(16) float stage[PAIR_STAGE_FLOATS];
+  __shared__ float part_t[PAIR_SPLIT][PAIR_CHUNK];
+  __shared__ int part_i[PAIR_SPLIT][PAIR_CHUNK];
   const int bid = seg_bid[blockIdx.x];
   if (bid < 0 || bid >= n_bins) return;  // dummy segment
-  const int row = blockIdx.x * PAIR_CHUNK + threadIdx.x;
+  // Part q = threadIdx.x / 128: whole warps, every lane of a warp on the
+  // same triangle at once.
+  const int part = threadIdx.x / PAIR_CHUNK, k = threadIdx.x % PAIR_CHUNK;
+  const long long row = (long long)blockIdx.x * PAIR_CHUNK + k;
   const PairRay r = load_pair_ray(dm, o1, row);
   const V3 iv = pair_inv_dir(r);
   float t = r.bound;
   int idx = -1;
-  for (int c = 0; c < PAIR_BIN_CHUNKS; ++c) {
-    const int cid = bid * PAIR_BIN_CHUNKS + c;
-    if (cid >= n_chunks) break;  // the last bin may be partial
-    const bool hit = chunk_slab_hit(boxes + 6 * cid, r, iv, t);
-    // Also the barrier between the last chunk's sweep and the next copy.
-    if (!__syncthreads_or(hit)) continue;
-    load_chunk(sh, table, cid);
+  const int c_end = min((bid + 1) * PAIR_BIN_CHUNKS, n_chunks);
+  for (int cid = bid * PAIR_BIN_CHUNKS; cid < c_end; ++cid) {
+    // The vote also orders this chunk's copy after the last one's reads.
+    if (!__syncthreads_or(chunk_slab_hit(boxes + 6 * cid, r, iv, t))) {
+      continue;
+    }
+    stage_chunk(stage, table, cid);
     __syncthreads();
-    chunk_sweep(sh, cid * PAIR_CHUNK, r, t_min, t, idx);
+    sweep_chunk(stage, cid, part, k, r, t_min, part_t, part_i, t, idx);
   }
-  t_out[row] = t;
-  idx_out[row] = idx;
+  if (part == 0) {
+    t_out[row] = t;
+    idx_out[row] = idx;
+  }
+}
+
+__global__ void __launch_bounds__(SEG_THREADS)
+pair_sweep_kernel(const float* __restrict__ dm, const float* __restrict__ o1,
+                  const int* __restrict__ seg_cid,
+                  const float* __restrict__ table, int n_chunks, float t_min,
+                  float inf, float* __restrict__ t_out,
+                  int* __restrict__ idx_out) {
+  __shared__ __align__(16) float stage[PAIR_STAGE_FLOATS];
+  __shared__ float part_t[PAIR_SPLIT][PAIR_CHUNK];
+  __shared__ int part_i[PAIR_SPLIT][PAIR_CHUNK];
+  const int cid = seg_cid[blockIdx.x];
+  if (cid < 0 || cid >= n_chunks) return;  // dummy segment
+  stage_chunk(stage, table, cid);
+  __syncthreads();
+  const int part = threadIdx.x / PAIR_CHUNK, k = threadIdx.x % PAIR_CHUNK;
+  const long long row = (long long)blockIdx.x * PAIR_CHUNK + k;
+  const PairRay r = load_pair_ray(dm, o1, row);
+  float t = r.bound;
+  int idx = -1;
+  sweep_chunk(stage, cid, part, k, r, t_min, part_t, part_i, t, idx);
+  if (part == 0) {
+    t_out[row] = idx >= 0 ? t : inf;
+    idx_out[row] = idx;
+  }
 }
 
 }  // namespace
@@ -221,7 +279,7 @@ extern "C" int tpt_pair_sweep(const float* dm, const float* o1,
                               float inf, float* t_out, int* idx_out,
                               void* stream) {
   if (n_segs <= 0) return (int)cudaSuccess;
-  pair_sweep_kernel<<<n_segs, PAIR_CHUNK, 0, (cudaStream_t)stream>>>(
+  pair_sweep_kernel<<<n_segs, SEG_THREADS, 0, (cudaStream_t)stream>>>(
       dm, o1, seg_cid, table, n_chunks, t_min, inf, t_out, idx_out);
   return (int)cudaGetLastError();
 }
@@ -232,7 +290,7 @@ extern "C" int tpt_pairbin_sweep(const float* dm, const float* o1,
                                  int n_chunks, float t_min, float* t_out,
                                  int* idx_out, void* stream) {
   if (n_segs <= 0) return (int)cudaSuccess;
-  pairbin_sweep_kernel<<<n_segs, PAIR_CHUNK, 0, (cudaStream_t)stream>>>(
+  pairbin_sweep_kernel<<<n_segs, SEG_THREADS, 0, (cudaStream_t)stream>>>(
       dm, o1, seg_bid, boxes, table, n_bins, n_chunks, t_min, t_out,
       idx_out);
   return (int)cudaGetLastError();

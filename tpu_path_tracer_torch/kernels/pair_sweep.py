@@ -29,15 +29,25 @@ CPU tensors they run the plain versions :func:`pair_sweep_plain` and
 fallback.  The plain versions write every product as elementwise multiplies
 and adds in the kernel's order, so kernel and plain version round alike.
 
-The emission is torch: ``nonzero`` of the candidate matrix, one
-``sort`` by chunk or bin, a padded layout by ``bincount`` and ``cumsum``,
-scatters back.  What the JAX emission adds for static shapes, gather cost or
-VMEM is left out: payload sorts, the cummax layout, the u32 bitmaps and
-their bit pops, the ``lax.switch`` size tiers, the Morton and
-lead-superchunk sort of the rays, the tile-level candidate lists and the
-640-chunk residency limit.  So is the ``PAIRBIN_K`` = 16 candidate budget,
-whose overflow sends the whole batch to the tile sweep in JAX: here every
-candidate of every ray is emitted, and no ray takes another route.
+The emission feeds them the same way: :func:`emit_pairbin` and
+:func:`emit_pair` (a round) lay out the rows, :func:`pairbin_best` and
+:func:`pair_advance` reduce the sweep's rows to rays.  On CUDA tensors they
+launch ``csrc/pair_emit.cu`` (histograms of keys per 256 rays, a scan, a
+deterministic scatter, a 64-bit ``atomicMin`` per hit; one host sync per
+call or round, the row count) and count their calls; on CPU tensors they
+run their plain versions, the torch emission: ``nonzero`` of the candidate
+matrix, one ``sort`` by chunk or bin, a padded layout by ``bincount`` and
+``cumsum``, scatters back.  Both give the same rows, row for row: keys
+ascending, rays ascending within a key, each key's run padded to a
+multiple of 128 rows with zero rows.  The pair route's candidates
+(:func:`_candidate_chunks` and its sorts) stay torch on both devices.
+What the JAX emission adds for static shapes, gather cost or VMEM is left
+out: payload sorts, the cummax layout, the u32 bitmaps and their bit pops,
+the ``lax.switch`` size tiers, the Morton and lead-superchunk sort of the
+rays, the tile-level candidate lists and the 640-chunk residency limit.  So
+is the ``PAIRBIN_K`` = 16 candidate budget, whose overflow sends the whole
+batch to the tile sweep in JAX: here every candidate of every ray is
+emitted, and no ray takes another route.
 """
 
 from __future__ import annotations
@@ -61,6 +71,9 @@ PAIR_E = 2         # pairs emitted per live ray per round
 DENSE_BLOCK = 1 << 23
 # Segments per block of the plain versions' [segments, 128, 128] products.
 PLAIN_BLOCK = 256
+# Rays per histogram cell of the emission on the card (csrc/pair_emit.cu
+# EMIT_BLOCK).
+EMIT_BLOCK = 256
 
 # Launches of the CUDA kernels in this process.
 PAIR_LAUNCHES = 0
@@ -176,7 +189,7 @@ def _edge_tests(dm, o1, tab, t_min, bound):
     """Every row of each segment against every triangle of the segment's
     chunk.  dm, o1 ``[S, 128, 8]``, tab ``[S, 22, 128]``, bound ``[S, 128]``;
     returns t ``[S, 128 rows, 128 triangles]``, _NONE where rejected.  The
-    arithmetic of ``csrc/pair_sweep.cu`` ``edge_test``, in its order."""
+    arithmetic of ``csrc/pair.cuh`` ``edge_test``, in its order."""
     ray = [dm[:, :, k, None] for k in range(6)]
     org = [o1[:, :, k, None] for k in range(3)]
 
@@ -388,6 +401,21 @@ def pairbin_sweep(pair_dm, pair_o1, seg_bid, boxes, table, t_min: float):
 # ------------------------------------------------------------ emission
 
 
+class PairRows(NamedTuple):
+    """One sweep launch's rows, as the emission lays them out."""
+    pair_dm: torch.Tensor  # [rows, 8] f32: d, o x d, bound, 0
+    pair_o1: torch.Tensor  # [rows, 8] f32: o, 1, 0...
+    seg: torch.Tensor      # [rows / 128] int32: the key of each segment
+    ray: torch.Tensor      # [rows] int32: the ray of each row, -1 padding
+
+
+def _no_rows(device):
+    return PairRows(torch.zeros((0, 8), device=device),
+                    torch.zeros((0, 8), device=device),
+                    torch.zeros((0,), dtype=torch.int32, device=device),
+                    torch.zeros((0,), dtype=torch.int32, device=device))
+
+
 def _rays(origin, direction, t_best0):
     n = origin.shape[0]
     out = []
@@ -420,11 +448,11 @@ def _segment_layout(key, n_keys: int):
     return rows, seg.to(torch.int32), n_rows
 
 
-def _pair_rows(o, d, bound, ray, rows, n_rows: int):
-    """The kernels' row arrays: pair_dm ``[rows, 8]`` (d, o x d, bound, 0)
-    and pair_o1 ``[rows, 8]`` (o, 1, 0...) with pair k (of ray ``ray[k]``)
-    at row ``rows[k]``; padding rows are zero, and their bound 0 rejects
-    every hit."""
+def _pair_rows(o, d, bound, ray, key, n_keys: int) -> PairRows:
+    """The rows of pairs (``ray[k]``, ``key[k]``), sorted by key and, within
+    a key, by ray: pair k at its row of :func:`_segment_layout`; padding rows
+    are zero, and their bound 0 rejects every hit."""
+    rows, seg, n_rows = _segment_layout(key, n_keys)
     n = o.shape[0]
     src_dm = torch.cat([d, vm.cross(o, d), bound[:, None],
                         o.new_zeros((n, 1))], dim=1)
@@ -433,14 +461,65 @@ def _pair_rows(o, d, bound, ray, rows, n_rows: int):
     pair_o1 = o.new_zeros((n_rows, 8))
     pair_dm[rows] = src_dm[ray]
     pair_o1[rows] = src_o1[ray]
-    return pair_dm, pair_o1
+    row_ray = torch.full((n_rows,), -1, dtype=torch.int32, device=o.device)
+    row_ray[rows] = ray.to(torch.int32)
+    return PairRows(pair_dm, pair_o1, seg, row_ray)
 
 
-def _best_per_ray(n: int, ray, t, idx):
+def emit_pairbin_plain(o, d, cap, bmin, bmax) -> PairRows:
+    """Plain version of the pair-bin emission: every (ray, bin) whose box
+    ``[bmin, bmax]`` the ray reaches below its cap, by one exact slab pass
+    blocked over rays, ``nonzero``, a stable sort by bin, and the padded
+    layout; each row's bound is its ray's cap."""
+    n_bins = bmin.shape[0]
+    iv = inv_dir(d)
+    ray, bins = [], []
+    block = max(1, DENSE_BLOCK // n_bins)
+    for s in range(0, o.shape[0], block):
+        e = s + block
+        ent = slab_entries(o[s:e, None], iv[s:e, None], cap[s:e, None],
+                           bmin[None], bmax[None])
+        r, b = torch.nonzero(ent < _BIG, as_tuple=True)
+        ray.append(r + s)
+        bins.append(b)
+    ray, bins = torch.cat(ray), torch.cat(bins)
+    if ray.shape[0] == 0:
+        return _no_rows(o.device)
+    bins, order = torch.sort(bins, stable=True)
+    return _pair_rows(o, d, cap, ray[order], bins, n_bins)
+
+
+def _round_live(t_best, taken, counts, start, entry):
+    """The rays live this round: a candidate left whose entry distance does
+    not exceed the running best."""
+    nxt = torch.clamp(start.long() + taken, max=entry.shape[0] - 1)
+    return (taken < counts) & (entry[nxt] <= t_best)
+
+
+def emit_pair_plain(o, d, t_best, taken, counts, start, chunk, entry,
+                    n_chunks: int) -> PairRows:
+    """Plain version of a pair round's emission: every live ray paired with
+    its next ``PAIR_E`` candidates (``chunk[start + taken ...]``, front to
+    back), a stable sort by chunk, and the padded layout; each row's bound
+    is its ray's running best."""
+    live = torch.nonzero(_round_live(t_best, taken, counts, start,
+                                     entry))[:, 0]
+    if live.shape[0] == 0:
+        return _no_rows(o.device)
+    k = taken[live].long()[:, None] + torch.arange(PAIR_E, device=o.device)
+    ok = k < counts[live][:, None]
+    pray = live[:, None].expand(-1, PAIR_E)[ok]
+    pchunk = chunk[(start[live].long()[:, None] + k)[ok]].long()
+    pchunk, order = torch.sort(pchunk, stable=True)
+    return _pair_rows(o, d, t_best, pray[order], pchunk, n_chunks)
+
+
+def _best_per_ray(n: int, rows: PairRows, t, idx):
     """Reduce pair rows to rays: each ray's least t over its rows that hit
     (``idx >= 0``) and, among equal t, the least index; _NONE and -1 for a
     ray none of whose rows hit."""
-    idx = idx.to(torch.int64)
+    real = rows.ray >= 0
+    ray, t, idx = rows.ray[real].long(), t[real], idx[real].to(torch.int64)
     t = torch.where(idx >= 0, t, _NONE)
     t_ray = torch.full((n,), _NONE, dtype=torch.float32,
                        device=t.device).scatter_reduce_(0, ray, t, "amin")
@@ -450,10 +529,262 @@ def _best_per_ray(n: int, ray, t, idx):
     return t_ray, torch.where(i_ray < _INT32_MAX, i_ray, -1)
 
 
+def pairbin_best_plain(rows: PairRows, t_row, i_row, t_best0):
+    """Plain version of the pair-bin reduction: each ray's closest hit over
+    its rows when it is below ``t_best0``, else INF and -1 (the contract of
+    ``closest_hit``).  A row that found nothing returns its cap with no
+    index; the index is what tells it from a hit."""
+    t_new, i_new = _best_per_ray(t_best0.shape[0], rows, t_row, i_row)
+    win = (i_new >= 0) & (t_new < t_best0)
+    return (torch.where(win, t_new, INF),
+            torch.where(win, i_new, torch.full_like(i_new, -1)))
+
+
+def pair_advance_plain(rows: PairRows, t_row, i_row, t_best, i_best, taken,
+                       counts, start, entry):
+    """Plain version of a pair round's reduction, in place: each ray live
+    this round takes ``PAIR_E`` more candidates, and its round's closest
+    hit when it is below its running best."""
+    live = _round_live(t_best, taken, counts, start, entry)
+    t_new, i_new = _best_per_ray(t_best.shape[0], rows, t_row, i_row)
+    win = (i_new >= 0) & (t_new < t_best)
+    t_best.copy_(torch.where(win, t_new, t_best))
+    i_best.copy_(torch.where(win, i_new, i_best))
+    taken.add_(live.to(taken.dtype) * PAIR_E)
+
+
+# The emission on the card: csrc/pair_emit.cu.  Each wrapper counts one
+# launch per call that launches its kernels.
+PAIRBIN_EMIT_LAUNCHES = 0
+PAIR_EMIT_LAUNCHES = 0
+PAIRBIN_BEST_LAUNCHES = 0
+PAIR_ADVANCE_LAUNCHES = 0
+
+
+class _EmitLib:
+    """The emission's C entry points of one library: the CUDA ones, or with
+    ``suffix="_host"`` the host build's, which take the same arguments."""
+
+    def __init__(self, lib, suffix=""):
+        p, i, f, q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+        sig = {"tpt_pairbin_emit": [p, p, p, p, i, i, i] + [p] * 7,
+               "tpt_pair_emit": [p] * 8 + [i, i] + [p] * 7,
+               "tpt_pair_layout": [p, i, i, p, p, p, p, p],
+               "tpt_pair_fill": [p, p, i, i, p, p, p, p, p],
+               "tpt_pair_best": [p, p, p, q, p, i, i, p, f] + [p] * 7}
+        for name, argtypes in sig.items():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            setattr(self, name[4:], fn)
+
+    @staticmethod
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _row_ptrs(rows):
+    """The row arrays a scatter writes; none for a count."""
+    if rows is None:
+        return None, None, None
+    return (rows.pair_dm.data_ptr(), rows.pair_o1.data_ptr(),
+            rows.ray.data_ptr())
+
+
+def _stream(device):
+    return (torch.cuda.current_stream(device).cuda_stream
+            if device.type == "cuda" else None)
+
+
+def _lay_out(lib: _EmitLib, hist, n_keys: int, n_blocks: int, device,
+             scatter):
+    """Steps 2-5 of csrc/pair_emit.cu: the scan of ``hist``, the layout,
+    the one host sync (rows and pairs, read together), then ``scatter(incl,
+    shift, rows)`` and the fill.  Returns the rows, none when no pair."""
+    stream = _stream(device)
+    incl = torch.cumsum(hist.view(-1), 0, dtype=torch.int32)
+    key_start = torch.empty((n_keys + 1,), dtype=torch.int32, device=device)
+    shift = torch.empty((n_keys,), dtype=torch.int32, device=device)
+    key_count = torch.empty_like(shift)
+    sizes = torch.empty((2,), dtype=torch.int64, device=device)
+    lib.check(lib.pair_layout(incl.data_ptr(), n_keys, n_blocks,
+                              key_start.data_ptr(), shift.data_ptr(),
+                              key_count.data_ptr(), sizes.data_ptr(),
+                              stream), "pair layout kernel")
+    n_rows, n_pairs = sizes.tolist()
+    if n_pairs == 0:
+        return _no_rows(device)
+    if n_rows > _INT32_MAX:
+        raise ValueError(f"{n_rows} pair rows do not fit the kernels' int32 "
+                         f"indices")
+    rows = PairRows(torch.empty((n_rows, 8), device=device),
+                    torch.empty((n_rows, 8), device=device),
+                    torch.empty((n_rows // TRI_CHUNK,), dtype=torch.int32,
+                                device=device),
+                    torch.empty((n_rows,), dtype=torch.int32, device=device))
+    scatter(incl, shift, rows)
+    lib.check(lib.pair_fill(key_start.data_ptr(), key_count.data_ptr(),
+                            n_keys, rows.seg.shape[0], rows.seg.data_ptr(),
+                            rows.pair_dm.data_ptr(), rows.pair_o1.data_ptr(),
+                            rows.ray.data_ptr(), stream), "pair fill kernel")
+    return rows
+
+
+def _emit_pairbin_on(lib: _EmitLib, o, d, cap, bmin, bmax) -> PairRows:
+    """The pair-bin emission through ``lib``'s entry points (the card's, or
+    the host build's on CPU tensors)."""
+    device = o.device
+    n, n_bins = o.shape[0], bmin.shape[0]
+    if n == 0:
+        return _no_rows(device)
+    if n * n_bins > _INT32_MAX:
+        raise ValueError(f"{n} rays x {n_bins} bins do not fit the "
+                         f"emission's int32 counts")
+    n_blocks = -(-n // EMIT_BLOCK)
+    stream = _stream(device)
+    boxes = torch.cat([bmin, bmax], dim=1).to(torch.float32).contiguous()
+    cap = cap.to(torch.float32).contiguous()
+    hist = torch.zeros((n_bins, n_blocks), dtype=torch.int32, device=device)
+
+    def emit(scatter, incl=None, shift=None, rows=None):
+        lib.check(lib.pairbin_emit(
+            o.data_ptr(), d.data_ptr(), cap.data_ptr(), boxes.data_ptr(), n,
+            n_bins, int(scatter), hist.data_ptr(), _ptr(incl), _ptr(shift),
+            *_row_ptrs(rows), stream), "pair-bin emission kernel")
+
+    emit(False)
+    return _lay_out(lib, hist, n_bins, n_blocks, device,
+                    lambda incl, shift, rows: emit(True, incl, shift, rows))
+
+
+def _emit_pair_on(lib: _EmitLib, o, d, t_best, taken, counts, start, chunk,
+                  entry, n_chunks: int) -> PairRows:
+    """A pair round's emission through ``lib``'s entry points."""
+    device = o.device
+    n = o.shape[0]
+    if n == 0:
+        return _no_rows(device)
+    n_blocks = -(-n // EMIT_BLOCK)
+    stream = _stream(device)
+    hist = torch.zeros((n_chunks, n_blocks), dtype=torch.int32, device=device)
+    state = [x.data_ptr() for x in (o, d, t_best, taken, counts, start,
+                                    chunk, entry)]
+
+    def emit(scatter, incl=None, shift=None, rows=None):
+        lib.check(lib.pair_emit(
+            *state, n, int(scatter), hist.data_ptr(), _ptr(incl),
+            _ptr(shift), *_row_ptrs(rows), stream), "pair emission kernel")
+
+    emit(False)
+    return _lay_out(lib, hist, n_chunks, n_blocks, device,
+                    lambda incl, shift, rows: emit(True, incl, shift, rows))
+
+
+def _best_on(lib: _EmitLib, rows: PairRows, t_row, i_row, n: int, advance,
+             t_best0=None, t_out=None, i_out=None, counts=None, start=None,
+             entry=None, taken=None):
+    """Step 6 through ``lib``'s entry points."""
+    device = t_row.device
+    best = torch.full((n,), -1, dtype=torch.int64, device=device)
+    lib.check(lib.pair_best(
+        t_row.data_ptr(), i_row.data_ptr(), rows.ray.data_ptr(),
+        rows.ray.shape[0], best.data_ptr(), n, int(advance), _ptr(t_best0),
+        INF, t_out.data_ptr(), i_out.data_ptr(), _ptr(counts), _ptr(start),
+        _ptr(entry), _ptr(taken), _stream(device)), "pair reduction kernel")
+
+
+def _on_card(x, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; any other device
+    raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no route for device {x.device}")
+    return True
+
+
+def _card_lib():
+    from . import _build
+
+    return _EmitLib(_build.load())
+
+
+def emit_pairbin(o, d, cap, bmin, bmax) -> PairRows:
+    """The pair-bin emission (arguments and result as
+    :func:`emit_pairbin_plain`; ``o``, ``d``, ``cap`` float32 and
+    contiguous): CUDA tensors launch ``csrc/pair_emit.cu``, CPU tensors run
+    the plain version, any other device raises."""
+    global PAIRBIN_EMIT_LAUNCHES
+    if not _on_card(o, "emit_pairbin"):
+        return emit_pairbin_plain(o, d, cap, bmin, bmax)
+    rows = _emit_pairbin_on(_card_lib(), o, d, cap, bmin, bmax)
+    PAIRBIN_EMIT_LAUNCHES += 1
+    return rows
+
+
+def emit_pair(o, d, t_best, taken, counts, start, chunk, entry,
+              n_chunks: int) -> PairRows:
+    """A pair round's emission (arguments and result as
+    :func:`emit_pair_plain`; taken, counts, start and chunk int32, the rest
+    float32, all contiguous): CUDA tensors launch ``csrc/pair_emit.cu``, CPU
+    tensors run the plain version, any other device raises."""
+    global PAIR_EMIT_LAUNCHES
+    if not _on_card(o, "emit_pair"):
+        return emit_pair_plain(o, d, t_best, taken, counts, start, chunk,
+                               entry, n_chunks)
+    rows = _emit_pair_on(_card_lib(), o, d, t_best, taken, counts, start,
+                         chunk, entry, n_chunks)
+    PAIR_EMIT_LAUNCHES += 1
+    return rows
+
+
+def pairbin_best(rows: PairRows, t_row, i_row, t_best0):
+    """The pair-bin reduction (as :func:`pairbin_best_plain`): CUDA tensors
+    launch ``csrc/pair_emit.cu``, CPU tensors run the plain version."""
+    global PAIRBIN_BEST_LAUNCHES
+    if not _on_card(t_row, "pairbin_best"):
+        return pairbin_best_plain(rows, t_row, i_row, t_best0)
+    n = t_best0.shape[0]
+    t_out = torch.empty((n,), dtype=torch.float32, device=t_row.device)
+    i_out = torch.empty((n,), dtype=torch.int64, device=t_row.device)
+    _best_on(_card_lib(), rows, t_row, i_row, n, False, t_best0=t_best0,
+             t_out=t_out, i_out=i_out)
+    PAIRBIN_BEST_LAUNCHES += 1
+    return t_out, i_out
+
+
+def pair_advance(rows: PairRows, t_row, i_row, t_best, i_best, taken, counts,
+                 start, entry):
+    """A pair round's reduction, in place (as :func:`pair_advance_plain`):
+    CUDA tensors launch ``csrc/pair_emit.cu``, CPU tensors run the plain
+    version."""
+    global PAIR_ADVANCE_LAUNCHES
+    if not _on_card(t_row, "pair_advance"):
+        pair_advance_plain(rows, t_row, i_row, t_best, i_best, taken, counts,
+                           start, entry)
+        return
+    _best_on(_card_lib(), rows, t_row, i_row, t_best.shape[0], True,
+             t_out=t_best, i_out=i_best, counts=counts, start=start,
+             entry=entry, taken=taken)
+    PAIR_ADVANCE_LAUNCHES += 1
+
+
 def _all_miss(n: int, device):
     """What ``closest_hit`` returns when no ray hits."""
     return (torch.full((n,), INF, dtype=torch.float32, device=device),
             torch.full((n,), -1, dtype=torch.int64, device=device))
+
+
+def _check_t_min(t_min: float, device):
+    # The card's reduction orders hits by the bits of t, which order like
+    # the values only for t > 0; every hit has t >= t_min.
+    if device.type == "cuda" and not t_min > 0:
+        raise ValueError(f"t_min must be positive on the card, got {t_min}")
 
 
 @torch.no_grad()
@@ -464,41 +795,20 @@ def pairbin_closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,
     (t ``[N]``, tri_index ``[N]`` int64), INF and -1 on a miss; a negative
     ``t_best0`` marks a retired lane, which emits no pair.  ``bvh`` is not
     read (the triangle order is already the BVH's); it is taken so that the
-    entry points are interchangeable."""
+    entry points are interchangeable.  On the card: one host sync (the
+    emission's row count)."""
     o, d, tb = _rays(origin, direction, t_best0)
-    n = o.shape[0]
+    _check_t_min(t_min, o.device)
     packed = pack_tris(tris)
-    n_bins = -(-packed.table.shape[0] // PAIR_G)
     cap = torch.minimum(tb, scene_diam(o, packed.cmin, packed.cmax))
-    iv = inv_dir(d)
     bmin, bmax = superchunk_boxes(packed.cmin, packed.cmax, PAIR_G)
-    # Every (ray, bin) whose box the ray reaches below its cap: one exact
-    # slab pass, blocked over rays.
-    ray, bins = [], []
-    block = max(1, DENSE_BLOCK // n_bins)
-    for s in range(0, n, block):
-        e = s + block
-        ent = slab_entries(o[s:e, None], iv[s:e, None], cap[s:e, None],
-                           bmin[None], bmax[None])
-        r, b = torch.nonzero(ent < _BIG, as_tuple=True)
-        ray.append(r + s)
-        bins.append(b)
-    ray, bins = torch.cat(ray), torch.cat(bins)
-    t_miss, i_miss = _all_miss(n, o.device)
-    if ray.shape[0] == 0:
-        return t_miss, i_miss
-    bins, order = torch.sort(bins, stable=True)
-    ray = ray[order]
-    rows, seg_bid, n_rows = _segment_layout(bins, n_bins)
-    pair_dm, pair_o1 = _pair_rows(o, d, cap, ray, rows, n_rows)
+    rows = emit_pairbin(o, d, cap, bmin, bmax)
+    if rows.ray.shape[0] == 0:
+        return _all_miss(o.shape[0], o.device)
     boxes = torch.cat([packed.cmin, packed.cmax], dim=1)
-    t_row, i_row = pairbin_sweep(pair_dm, pair_o1, seg_bid, boxes,
+    t_row, i_row = pairbin_sweep(rows.pair_dm, rows.pair_o1, rows.seg, boxes,
                                  packed.table, t_min)
-    # A row that found nothing returns its cap with no index; the index is
-    # what tells it from a hit.
-    t_new, i_new = _best_per_ray(n, ray, t_row[rows], i_row[rows])
-    win = (i_new >= 0) & (t_new < tb)
-    return torch.where(win, t_new, t_miss), torch.where(win, i_new, i_miss)
+    return pairbin_best(rows, t_row, i_row, tb)
 
 
 def _candidate_chunks(o, iv, cap, packed: PackedTris):
@@ -535,11 +845,13 @@ def pair_closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,
     """Closest triangle hit per ray below ``t_best0`` by rounds of the pair
     sweep; contract and arguments as :func:`pairbin_closest_hit`.  Each
     ray's candidate chunks are ordered front to back by its entry distance
-    into their boxes; a round pairs every live ray with its next ``PAIR_E``
-    candidates, and a ray is live while it has a candidate whose entry
-    distance does not exceed its running best.  Every round costs host
-    syncs (the live count and the layout's size)."""
+    into their boxes (torch, with host syncs); a round pairs every live ray
+    with its next ``PAIR_E`` candidates, and a ray is live while it has a
+    candidate whose entry distance does not exceed its running best.  On
+    the card each round costs one host sync (the emission's row and pair
+    counts); the last round finds no pair."""
     o, d, tb = _rays(origin, direction, t_best0)
+    _check_t_min(t_min, o.device)
     n = o.shape[0]
     packed = pack_tris(tris)
     n_chunks = packed.table.shape[0]
@@ -547,36 +859,27 @@ def pair_closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,
     ray, chunk, entry = _candidate_chunks(o, inv_dir(d), cap, packed)
     if ray.shape[0] == 0:
         return _all_miss(n, o.device)
+    if ray.shape[0] > _INT32_MAX:
+        raise ValueError(f"{ray.shape[0]} candidates do not fit the "
+                         f"emission's int32 indices")
     # Front to back within each ray: by entry, then stably by ray.
     order = torch.argsort(entry, stable=True)
     order = order[torch.argsort(ray[order], stable=True)]
-    chunk, entry = chunk[order], entry[order]
+    chunk = chunk[order].to(torch.int32)
+    entry = entry[order].contiguous()
     counts = torch.bincount(ray, minlength=n)
-    start = torch.cumsum(counts, 0) - counts
+    start = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    counts = counts.to(torch.int32)
     taken = torch.zeros_like(counts)
     t_best = tb.clone()
     i_best = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    live = torch.nonzero(counts > 0)[:, 0]
-    ahead = torch.arange(PAIR_E, device=o.device)
     while True:
-        nxt = torch.clamp(start[live] + taken[live], max=entry.shape[0] - 1)
-        live = live[(taken[live] < counts[live])
-                    & (entry[nxt] <= t_best[live])]
-        if live.shape[0] == 0:
+        rows = emit_pair(o, d, t_best, taken, counts, start, chunk, entry,
+                         n_chunks)
+        if rows.ray.shape[0] == 0:
             break
-        k = taken[live][:, None] + ahead[None]                   # [L, E]
-        ok = k < counts[live][:, None]
-        pray = live[:, None].expand(-1, PAIR_E)[ok]
-        pchunk = chunk[(start[live][:, None] + k)[ok]]
-        pchunk, order = torch.sort(pchunk, stable=True)
-        pray = pray[order]
-        rows, seg_cid, n_rows = _segment_layout(pchunk, n_chunks)
-        pair_dm, pair_o1 = _pair_rows(o, d, t_best, pray, rows, n_rows)
-        t_row, i_row = pair_sweep(pair_dm, pair_o1, seg_cid, packed.table,
-                                  t_min)
-        t_new, i_new = _best_per_ray(n, pray, t_row[rows], i_row[rows])
-        win = (i_new >= 0) & (t_new < t_best)
-        t_best = torch.where(win, t_new, t_best)
-        i_best = torch.where(win, i_new, i_best)
-        taken[live] += PAIR_E
+        t_row, i_row = pair_sweep(rows.pair_dm, rows.pair_o1, rows.seg,
+                                  packed.table, t_min)
+        pair_advance(rows, t_row, i_row, t_best, i_best, taken, counts,
+                     start, entry)
     return torch.where(i_best >= 0, t_best, INF), i_best
