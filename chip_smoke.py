@@ -83,7 +83,22 @@ Phases, each printed on its own line; any failure exits non-zero:
 17. user_layer: the renderer's perf log and FPS cap on the card, a
     checkpoint at frame k resumed in a new ``Renderer`` against an
     uninterrupted render, and ``render --checkpoint`` then ``--resume`` in
-    subprocesses against the same frames in one go.
+    subprocesses against the same frames in one go;
+18. dist: ranks of a ``torch.distributed`` group started by this script
+    (``--dist-rank``, with torch's launcher variables), after the build:
+    (i) one rank over NCCL, 3 sharded train steps at 512x512 on the Cornell
+    box through both megakernels against the one-process
+    ``make_train_step``, losses and parameters bit for bit, with the
+    kernels' launch counts; (ii) two ranks over gloo sharing the card, each
+    with its chunk on it: the reference scene's 512x512 frame through the
+    forward megakernel and the 81,920-triangle mesh frame through the
+    traversal kernel, each gathered against the one-process frame bit for
+    bit, and the Cornell step's summed gradients within 1e-5 of each
+    group's largest, with each rank's launch counts; (iii)
+    ``measure_scaling`` at 512x512 over the two ranks (sharding overhead:
+    they share one card); then ``render --devices 2 --megakernel`` against
+    the one-process image.  Times stand beside the card's name and power
+    limit.
 
 Bounds: each kernel's least time on the card, the larger of its FP32
 operations over the card's FP32 peak and its bytes (inputs read once,
@@ -2375,6 +2390,397 @@ def user_layer_phase(torch, pt, device, frames=100, max_fps=200.0, k=3):
           f"in one go")
 
 
+# Phase 18 (dist): the ranks of a group started from this script, each a
+# process of its own with torch's launcher variables.  Each rank keeps its
+# chunk on the card; (i) one rank over NCCL, (ii) two ranks sharing the one
+# card over gloo (NCCL refuses two ranks on one GPU).
+DIST_STEPS = 3
+DIST_TIMEOUT = 300
+DIST_GRAD_RTOL = 1e-5
+DIST_PARAM_ATOL = 1e-5    # tests/test_torch_dist.py's train-step bound
+DIST_SCALING = dict(iters=4, repeats=3)
+
+
+def dist_train(torch, pt, device, mesh):
+    """``cli train``'s set-up and DIST_STEPS steps over ``mesh`` (None:
+    one process) at the training path's size, through both megakernels.
+    Returns each step's loss, gradients and parameters after it, the ms of
+    each step and the launch counts of the steps."""
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.dist import render_dist
+    from tpu_path_tracer_torch.dist.sharding import mesh_size, shard_scene
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    if mesh is not None:
+        scene = shard_scene(scene, mesh)
+    cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=True)
+    view = pt.Camera(eye=[0, 0, 3.2], center=[0, 0, 0]).view_matrix
+    rows = render_dist.padded_pixels(cfg, mesh) // mesh_size(mesh)
+    with torch.no_grad():
+        target = render_dist.make_sharded_frame_fn(mesh, meta, cfg)(
+            torch.zeros((rows, 3), device=device), 1, True, view, scene)
+    params = {k: (v * 0.5).detach().clone().requires_grad_(True)
+              for k, v in extract_params(scene, TRAIN_GROUPS).items()}
+    step = render_dist.make_train_step(
+        mesh, scene, meta, cfg, apply_params,
+        torch.optim.Adam(params.values(), lr=5e-2))
+    torch.cuda.synchronize()
+    mk.LAUNCHES = 0
+    mk.BWD_LAUNCHES = 0
+    steps, ms = [], []
+    for _ in range(DIST_STEPS):
+        start = time.perf_counter()
+        loss = step(params, target, 1, view)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+        steps.append((loss, {k: p.grad.clone() for k, p in params.items()
+                             if p.grad is not None},
+                      {k: p.detach().clone() for k, p in params.items()}))
+    launches = {"megakernel_fwd": mk.LAUNCHES,
+                "megakernel_bwd": mk.BWD_LAUNCHES}
+    return steps, ms, launches
+
+
+def train_gap(torch, got, ref):
+    """Two train runs step by step: whether losses and parameters are
+    equal bit for bit, the largest parameter difference and the largest
+    gradient difference over its group's largest."""
+    out = {"losses_bit_equal": True, "params_bit_equal": True,
+           "max_param_abs_diff": 0.0, "max_grad_err_over_group_max": 0.0}
+    for (loss, grads, params), (loss_r, grads_r, params_r) in zip(got, ref):
+        out["losses_bit_equal"] &= bool(torch.equal(loss, loss_r))
+        for k in params_r:
+            out["params_bit_equal"] &= bool(torch.equal(params[k],
+                                                        params_r[k]))
+            out["max_param_abs_diff"] = max(
+                out["max_param_abs_diff"],
+                float((params[k] - params_r[k]).abs().max()))
+        for k in grads_r:
+            scale = max(float(grads_r[k].abs().max()), GRAD_ATOL)
+            out["max_grad_err_over_group_max"] = max(
+                out["max_grad_err_over_group_max"],
+                float((grads[k] - grads_r[k]).abs().max()) / scale)
+    return out
+
+
+def sharding_identity(torch, pt, device, mesh):
+    """What the sharding adds at one rank, bit for bit: the loss over the
+    mesh against the one-process loss on the same parameters, and the
+    gradients after the mesh's all-reduce against those before it."""
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.dist import render_dist
+
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=True)
+    view = pt.Camera(eye=[0, 0, 3.2], center=[0, 0, 0]).view_matrix
+    n_pad = render_dist.padded_pixels(cfg, mesh)
+    with torch.no_grad():
+        target = render_dist.make_sharded_frame_fn(None, meta, cfg)(
+            torch.zeros((n_pad, 3), device=device), 1, True, view, scene)
+    params = {k: (v * 0.5).detach().clone().requires_grad_(True)
+              for k, v in extract_params(scene, TRAIN_GROUPS).items()}
+    losses = [render_dist.make_sharded_loss_fn(m, scene, meta, cfg,
+                                               apply_params)(
+        params, target, 1, view) for m in (None, mesh)]
+    losses[1].backward()
+    before = {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+              for k, p in params.items()}
+    render_dist.sum_grads(list(params.values()), mesh)
+    return {"loss_bit_equal": bool(torch.equal(losses[0].detach(),
+                                               losses[1].detach())),
+            "grads_bit_equal_after_all_reduce": all(
+                torch.equal(p.grad, before[k]) for k, p in params.items())}
+
+
+def dist_world1(torch, pt, device, mesh):
+    """(i): the sharded train step on a one-rank NCCL mesh against the
+    one-process step, and the one-process step against itself (the
+    backward kernel sums gradients with atomics in no fixed order); what
+    the sharding adds at one rank, bit for bit."""
+    out, runs = {}, {}
+    for name, m in (("one_process", None), ("sharded", mesh),
+                    ("one_process_again", None)):
+        runs[name], ms, launches = dist_train(torch, pt, device, m)
+        out[name] = {"losses": [float(s[0]) for s in runs[name]],
+                     "step_ms": ms, "launches": launches}
+    out["sharded_vs_one_process"] = train_gap(torch, runs["sharded"],
+                                              runs["one_process"])
+    out["one_process_vs_itself"] = train_gap(
+        torch, runs["one_process_again"], runs["one_process"])
+    out["identity"] = sharding_identity(torch, pt, device, mesh)
+    return out
+
+
+def dist_frame(torch, pt, device, mesh, scene, meta, cfg, eye):
+    """One frame through ``make_sharded_frame_fn`` over ``mesh`` on this
+    rank's chunk; the gathered frame against the one-process frame of the
+    same padded pixels (on the mesh's first rank).  Launch counts around
+    the sharded frame alone."""
+    from tpu_path_tracer_torch.dist.render_dist import (make_sharded_frame_fn,
+                                                        padded_pixels)
+    from tpu_path_tracer_torch.dist.sharding import (gather_rows, mesh_rank,
+                                                     shard_scene)
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+    from tpu_path_tracer_torch.kernels import traversal
+
+    view = pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix
+    n_pad = padded_pixels(cfg, mesh)
+    sharded = shard_scene(scene, mesh)
+    frame = make_sharded_frame_fn(mesh, meta, cfg)
+    fb = torch.zeros((n_pad // mesh.size(), 3), device=device)
+    frame(fb, 1, True, view, sharded)  # warm-up: packing, layouts
+    torch.cuda.synchronize()
+    mk.LAUNCHES = 0
+    traversal.LAUNCHES = 0
+    start = time.perf_counter()
+    frame(fb, 3, True, view, sharded)
+    torch.cuda.synchronize()
+    out = {"sharded_frame_ms": (time.perf_counter() - start) * 1e3,
+           "launches": {"megakernel_fwd": mk.LAUNCHES,
+                        "bvh_closest_hit": traversal.LAUNCHES},
+           "rows": n_pad, "rows_per_rank": fb.shape[0]}
+    whole = gather_rows(fb, mesh)
+    if mesh_rank(mesh) == 0:
+        one = make_sharded_frame_fn(None, meta, cfg)(
+            torch.zeros((n_pad, 3), device=device), 3, True, view, scene)
+        out["bit_equal"] = bool(torch.equal(whole, one))
+        out["rows_differing"] = int((whole != one).any(dim=1).sum())
+        out["finite"] = bool(torch.isfinite(whole).all())
+    return out
+
+
+def dist_grads(torch, pt, device, mesh):
+    """The sharded Cornell loss and its summed gradients against the
+    one-process ones (on the mesh's first rank), each gradient against its
+    group's largest; launch counts around the sharded loss and backward."""
+    from tpu_path_tracer_torch.diff.params import apply_params, extract_params
+    from tpu_path_tracer_torch.dist import render_dist
+    from tpu_path_tracer_torch.dist.sharding import (gather_rows, mesh_rank,
+                                                     shard_scene)
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    sharded = shard_scene(scene, mesh)
+    cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=True)
+    view = pt.Camera(eye=[0, 0, 3.2], center=[0, 0, 0]).view_matrix
+    rows = render_dist.padded_pixels(cfg, mesh) // mesh.size()
+    with torch.no_grad():
+        target = render_dist.make_sharded_frame_fn(mesh, meta, cfg)(
+            torch.zeros((rows, 3), device=device), 1, True, view, sharded)
+
+    def grads(m, s, t):
+        params = {k: (v * 0.5).detach().clone().requires_grad_(True)
+                  for k, v in extract_params(s, TRAIN_GROUPS).items()}
+        loss = render_dist.make_sharded_loss_fn(m, s, meta, cfg,
+                                                apply_params)(
+            params, t, 1, view)
+        loss.backward()
+        if m is not None:
+            render_dist.sum_grads(list(params.values()), m)
+        return float(loss.detach()), {
+            k: torch.zeros_like(p) if p.grad is None else p.grad
+            for k, p in params.items()}
+
+    grads(mesh, sharded, target)  # warm-up
+    torch.cuda.synchronize()
+    mk.LAUNCHES = 0
+    mk.BWD_LAUNCHES = 0
+    loss, got = grads(mesh, sharded, target)
+    torch.cuda.synchronize()
+    out = {"loss": loss, "launches": {"megakernel_fwd": mk.LAUNCHES,
+                                      "megakernel_bwd": mk.BWD_LAUNCHES}}
+    whole_target = gather_rows(target, mesh)
+    if mesh_rank(mesh) == 0:
+        ref_loss, ref = grads(None, scene, whole_target)
+        rel = 0.0
+        for k in ref:
+            scale = max(float(ref[k].abs().max()), GRAD_ATOL)
+            rel = max(rel, float((got[k] - ref[k]).abs().max()) / scale)
+        out.update(one_process_loss=ref_loss, max_err_over_group_max=rel,
+                   loss_rel_err=abs(loss - ref_loss) / abs(ref_loss))
+    return out
+
+
+def dist_rank(job, out_dir):
+    """One rank of phase 18 (``chip_smoke.py --dist-rank JOB OUT_DIR``):
+    joins the group from the launcher's variables, runs JOB and writes its
+    results to ``OUT_DIR/JOB.RANK.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import tpu_path_tracer_torch as pt
+    from tpu_path_tracer_torch.dist import render_dist
+    from tpu_path_tracer_torch.dist.sharding import (init_distributed,
+                                                     make_mesh, rank_device)
+
+    rank = init_distributed(device="cuda")
+    mesh = make_mesh()
+    device = rank_device(mesh)
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(device)}
+    start = time.perf_counter()
+    try:
+        if job == "world1":
+            out.update(dist_world1(torch, pt, device, mesh))
+        else:
+            ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
+            out["reference_frame"] = dist_frame(
+                torch, pt, device, mesh, ref, ref_meta,
+                pt.RenderConfig(width=512, height=512, max_bounces=4,
+                                use_megakernel=True), [0.5, 0.0, 2.5])
+            big, big_meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+            out["mesh_frame"] = dist_frame(torch, pt, device, mesh, big,
+                                           big_meta,
+                                           pt.RenderConfig(**MESH_KW),
+                                           MESH_EYE)
+            out["grads"] = dist_grads(torch, pt, device, mesh)
+            out["scaling"] = render_dist.measure_scaling(**DIST_SCALING)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - start
+    with open(os.path.join(out_dir, f"{job}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_ranks(world, job, out_dir):
+    """Starts ``world`` ranks of JOB on localhost and waits for them; a
+    rank that fails or outlives DIST_TIMEOUT kills the others and fails the
+    phase.  Returns each rank's results."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+        logs.append(os.path.join(out_dir, f"{job}.{rank}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank",
+                 job, out_dir], cwd=REPO, env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT
+    while any(p.poll() is None for p in procs):
+        if (any(p.returncode not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            for p in procs:
+                p.kill()
+            break
+        time.sleep(0.1)
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        p.wait()
+        check(p.returncode == 0, f"dist {job}: rank {rank} exited "
+              f"{p.returncode}:\n{open(log).read()[-3000:]}")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{job}.{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_phase(smi):
+    """Phase 18: (i) one rank over NCCL, the sharded train step against
+    the one-process step; (ii) two ranks over gloo on the one card, the
+    reference and mesh frames and the Cornell gradients against one
+    process; (iii) measure_scaling over the two ranks; then the render
+    command over two ranks."""
+    out_dir = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
+                           "chip_smoke_dist")
+    os.makedirs(out_dir, exist_ok=True)
+    start = time.perf_counter()
+    one, = run_ranks(1, "world1", out_dir)
+    phase("dist", case="world1", gpu=smi, backend=one["backend"],
+          steps=DIST_STEPS, seconds=round(one["seconds"], 3),
+          **{k: one[k] for k in ("one_process", "sharded",
+                                 "one_process_again",
+                                 "sharded_vs_one_process",
+                                 "one_process_vs_itself", "identity")})
+    check(one["backend"] == "nccl", f"world 1 ran {one['backend']}")
+    check(one["sharded"]["launches"] == {"megakernel_fwd": DIST_STEPS,
+                                         "megakernel_bwd": DIST_STEPS},
+          f"world 1 launches {one['sharded']['launches']}")
+    check(all(one["identity"].values()), "world 1: the sharding changed "
+          f"bits: {one['identity']}")
+    gap = one["sharded_vs_one_process"]
+    check(gap["max_grad_err_over_group_max"] <= DIST_GRAD_RTOL
+          and gap["max_param_abs_diff"] <= DIST_PARAM_ATOL,
+          f"world 1: the sharded train step is {gap} from one process")
+    two = run_ranks(2, "world2", out_dir)
+    for key in ("reference_frame", "mesh_frame", "grads"):
+        phase("dist", case=f"world2_{key}", gpu=smi,
+              backend=two[0]["backend"], devices=[r["device"] for r in two],
+              ranks=[r[key] for r in two])
+    scaling = two[0]["scaling"]
+    phase("dist", case="measure_scaling", gpu=smi, size="512x512",
+          **DIST_SCALING, **scaling,
+          seconds=round(time.perf_counter() - start, 3))
+    check(all(r["backend"] == "gloo" for r in two), "world 2 is not gloo")
+    ref0, mesh0, grads0 = (two[0][k] for k in ("reference_frame",
+                                                "mesh_frame", "grads"))
+    check(ref0["bit_equal"] and ref0["finite"], "world 2: the reference "
+          f"frame differs on {ref0['rows_differing']} rows")
+    check(mesh0["bit_equal"] and mesh0["finite"], "world 2: the mesh frame "
+          f"differs on {mesh0['rows_differing']} rows")
+    check(grads0["max_err_over_group_max"] <= DIST_GRAD_RTOL,
+          f"world 2 gradients {grads0['max_err_over_group_max']} of the "
+          f"group's largest")
+    for r in two:
+        check(r["reference_frame"]["launches"]["megakernel_fwd"] == 1,
+              f"rank {r['rank']}: reference frame launches")
+        check(r["mesh_frame"]["launches"]["bvh_closest_hit"] > 0,
+              f"rank {r['rank']}: no traversal launch")
+        check(r["grads"]["launches"] == {"megakernel_fwd": 1,
+                                         "megakernel_bwd": 1},
+              f"rank {r['rank']}: gradient launches")
+    check("NOT a speedup" in scaling["kind"], "measure_scaling called ranks "
+          "on one card a speedup")
+    check(scaling["tput_1dev_rays_s"] > 0 and scaling["tput_ndev_rays_s"] > 0,
+          "measure_scaling throughputs")
+    dist_cli(smi, out_dir)
+
+
+def dist_cli(smi, out_dir):
+    """``render --devices 2 --megakernel`` on the card: the command starts
+    two ranks itself; its PNG against the one-process renderer's image of
+    the same frames."""
+    import numpy as np
+    import torch
+
+    import tpu_path_tracer_torch as pt
+    from tpu_path_tracer_torch.utils.image import read_png
+
+    png = os.path.join(out_dir, "devices2.png")
+    if os.path.exists(png):
+        os.remove(png)
+    cmd = [sys.executable, "-m", "tpu_path_tracer_torch", "render",
+           "--devices", "2", "--megakernel", "--width", "128", "--height",
+           "128", "--bounces", "4", "--frames", "2", "-o", png]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT)
+    seconds = time.perf_counter() - start
+    check(proc.returncode == 0, f"render --devices 2 failed: {proc.stderr}")
+    scene, meta, _ = pt.builtin.cornell_box(device=torch.device("cuda", 0))
+    one = pt.Renderer(scene, meta, pt.RenderConfig(
+        width=128, height=128, max_bounces=4, use_megakernel=True),
+        pt.Camera(eye=[0.0, 0.0, 3.2], center=[0, 0, 0]))
+    one.render_animation(2)
+    levels = int(np.abs(read_png(png).astype(np.int32)
+                        - one.display().astype(np.int32)).max())
+    phase("dist", case="cli_devices", gpu=smi, seconds=round(seconds, 2),
+          stdout=proc.stdout.strip().splitlines(),
+          png_max_level_diff=levels)
+    check(proc.stdout.count("wrote ") == 1
+          and "on cuda:0 x 2 ranks" in proc.stdout,
+          f"render --devices 2 printed {proc.stdout!r}")
+    check(levels == 0, f"render --devices 2: the PNG is {levels} levels "
+          f"from one process")
+
+
 def run():
     import torch
 
@@ -2399,6 +2805,7 @@ def run():
     pair_phase(torch, pt, device, smi)
     pair_kernels = pair_main_path_phase(torch, pt, device, smi)
     user_layer_phase(torch, pt, device)
+    dist_phase(smi)
     ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
     fwd_bound = megakernel_bound(
         torch, pt, device, ref, ref_meta,
@@ -2481,6 +2888,9 @@ def run():
 
 
 def main():
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(*sys.argv[2:4])
+        return 0
     try:
         run()
     except SmokeFailure as e:

@@ -8,8 +8,10 @@ traversal and the ray-major pair sweeps are hand-written CUDA for Hopper
 (``scene.objreader``) and ``procedural`` meshes behind the BVH builders of
 ``accel``.  Training: ``diff.params``,
 ``dist.render_dist.make_train_step`` and ``python -m tpu_path_tracer_torch
-train``.  Public API re-exports below, matching the JAX package for what
-is ported; see README.md.
+train``.  Several ranks: ``dist.sharding`` on ``torch.distributed``,
+``Renderer(mesh=)`` and the CLI's ``--devices`` / ``--multihost``.  Public
+API re-exports below, matching the JAX package for what is ported; see
+README.md.
 """
 
 from .core.camera import Camera

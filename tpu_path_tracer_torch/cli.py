@@ -3,24 +3,38 @@ package's subcommands, flags and defaults::
 
     python -m tpu_path_tracer_torch render --scene reference -o out.png
     python -m tpu_path_tracer_torch render --scene mesh.obj --bvh median
+    python -m tpu_path_tracer_torch render --devices 2
+    torchrun --nproc-per-node 2 -m tpu_path_tracer_torch render --multihost
     python -m tpu_path_tracer_torch train --params emission,bsdf
     python -m tpu_path_tracer_torch grad-check
     python -m tpu_path_tracer_torch info
 
-Everything runs on the first CUDA device; without one it raises, and
+Everything runs on the CUDA devices; without one it raises, and
 ``--device cpu`` is the only way onto the CPU.  ``--megakernel`` routes
 tracing, and training's gradients, through the CUDA megakernels (on the
 CPU, through their plain version); an OBJ mesh goes through a BVH and the
 CUDA traversal kernel.  ``render`` logs, checkpoints, resumes and previews
-as the JAX command does.  What is not ported yet raises, naming the ROADMAP
-item that brings it: ``--devices`` and ``--multihost`` (item 11) and
-``bench`` (item 12).
+as the JAX command does.
+
+Several ranks (``dist``): ``--devices N`` starts N local ranks from this
+command, one card each (ranks beyond the cards share them over gloo), or N
+gloo ranks under ``--device cpu``; ``--multihost`` joins the group of a
+launcher (``torchrun``, or ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
+``RANK`` set by hand) and spans all of it.  ``train`` spans every visible
+card by default, as the JAX command spans every device.  The first rank
+alone prints the report lines and writes the PNG and the checkpoint; a
+rank that fails fails the command.  ``grad-check`` takes both flags and
+ignores them, as in the JAX package.  What is not ported yet raises,
+naming the ROADMAP item that brings it: ``bench`` (item 12) and the
+preview over several ranks (item 13).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import sys
 import time
 
@@ -82,9 +96,12 @@ def _add_common(p):
     p.add_argument("--stratify", action="store_true")
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--devices", type=int, default=0,
-                   help="shard rays over this many devices (0 = single)")
+                   help="shard rays over this many local ranks, started "
+                        "by this command (0 = single)")
     p.add_argument("--multihost", action="store_true",
-                   help="span every host of a cluster")
+                   help="join the process group of a launcher (torchrun; "
+                        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK) and "
+                        "span all of it")
     p.add_argument("--megakernel", action="store_true",
                    help="route tracing through the fused CUDA megakernels "
                         "(analytic scenes + small meshes)")
@@ -93,9 +110,77 @@ def _add_common(p):
                         "without one) or the CPU")
 
 
-def _check_single_device(args):
-    if args.devices or args.multihost:
-        _unported("--devices / --multihost", "item 11 (torch.distributed)")
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, body, args):
+    """One rank that ``--devices`` started: join the group, run
+    ``body(args, mesh)``, leave the group."""
+    import torch
+    import torch.distributed as dist
+    from .dist.sharding import init_distributed, make_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=args.device)
+    try:
+        body(args, make_mesh(device_type=args.device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(args, body, ranks: int):
+    """``body(args, mesh)`` over the ranks the flags ask for: the launcher's
+    group under ``--multihost``, ``ranks`` local ranks started here when
+    above 1, else this process with no mesh.  A failed rank raises here."""
+    _device(args)  # the card, or --device cpu, before anything starts
+    if args.multihost:
+        import torch.distributed as dist
+        from .dist.sharding import init_distributed, make_mesh
+
+        rank = init_distributed(device=args.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        print(f"multihost: process {rank} of {world}")
+        try:
+            if args.devices not in (0, world):
+                raise ValueError(f"--devices {args.devices} under "
+                                 f"--multihost: the group has {world} ranks")
+            mesh = make_mesh(device_type=args.device) if world > 1 else None
+            return body(args, mesh)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    if ranks <= 1:
+        return body(args, None)
+    import torch.multiprocessing as mp
+
+    if args.device == "cuda":
+        # Build the kernels once here, not in every rank.
+        from .accel import native
+        from .kernels import _build
+        _build.build()
+        native.available()
+    mp.start_processes(_rank_main, args=(ranks, _free_port(), body, args),
+                       nprocs=ranks, join=True, start_method="spawn")
+
+
+def _say(mesh, *msg):
+    """Print on the first rank alone."""
+    from .dist.sharding import mesh_rank
+    if mesh_rank(mesh) == 0:
+        print(*msg)
+
+
+def _rank_device(args, mesh):
+    if mesh is None:
+        return _device(args)
+    from .dist.sharding import rank_device
+    return rank_device(mesh)
 
 
 def _make_cfg(args):
@@ -114,21 +199,33 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+_PREVIEW_OVER_RANKS = ("the tty preview over several ranks",
+                       "item 13 (rank 0 broadcasts the camera every frame)")
+
+
 def cmd_render(args):
+    if args.interactive and args.devices > 1:
+        _unported(*_PREVIEW_OVER_RANKS)
+    _run_ranks(args, _render, args.devices)
+
+
+def _render(args, mesh):
     from .core.camera import Camera
+    from .dist.sharding import mesh_size
     from .renderer import Renderer
 
-    _check_single_device(args)
-    device = _device(args)
+    if args.interactive and mesh is not None:
+        _unported(*_PREVIEW_OVER_RANKS)
+    device = _rank_device(args, mesh)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args)
     r = Renderer(scene, meta, cfg, Camera(eye=args.eye or eye,
-                                          center=[0, 0, 0]),
+                                          center=[0, 0, 0]), mesh=mesh,
                  log_performance=args.log_performance,
                  log_count_of_samples=args.log_samples)
     if args.resume:
         r.load_checkpoint(args.resume)
-        print(f"resumed at frame {r.frame_num}")
+        _say(mesh, f"resumed at frame {r.frame_num}")
     if args.interactive:
         from .preview import run_preview
         run_preview(r, max_fps=args.max_fps)
@@ -141,13 +238,14 @@ def cmd_render(args):
     _sync(device)
     dt = time.time() - t0
     n_rays = args.frames * cfg.width * cfg.height * cfg.samples_per_pixel
-    print(f"{args.frames} frames ({r.frame_num} accumulated) in {dt:.2f}s "
-          f"= {n_rays / dt / 1e6:.1f} Mray/s on {device}")
+    ranks = f" x {mesh_size(mesh)} ranks" if mesh is not None else ""
+    _say(mesh, f"{args.frames} frames ({r.frame_num} accumulated) in "
+         f"{dt:.2f}s = {n_rays / dt / 1e6:.1f} Mray/s on {device}{ranks}")
     r.save_png(args.output)
-    print(f"wrote {args.output}")
+    _say(mesh, f"wrote {args.output}")
     if args.checkpoint:
         r.save_checkpoint(args.checkpoint)
-        print(f"checkpoint -> {args.checkpoint}")
+        _say(mesh, f"checkpoint -> {args.checkpoint}")
 
 
 def cmd_bench(args):
@@ -169,7 +267,6 @@ def cmd_grad_check(args):
     from .diff.params import apply_params, extract_params
     from .integrator.render import path_trace_pixels
 
-    _check_single_device(args)
     device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args).replace(width=64, height=64,
@@ -210,27 +307,38 @@ def cmd_grad_check(args):
 
 def cmd_train(args):
     """Inverse rendering: recover emitter radiance and albedos from a
-    target image rendered with known parameters."""
+    target image rendered with known parameters.  Without ``--devices``
+    it spans every visible card (``cli.py:207``)."""
+    ranks = args.devices
+    if not ranks and args.device == "cuda" and not args.multihost:
+        import torch
+        ranks = torch.cuda.device_count()
+    _run_ranks(args, _train, ranks)
+
+
+def _train(args, mesh):
     import torch
     from .core.camera import Camera
     from .diff.params import apply_params, extract_params
     from .dist.render_dist import (make_sharded_frame_fn, make_train_step,
                                    padded_pixels)
+    from .dist.sharding import mesh_size, shard_scene
 
-    _check_single_device(args)
-    device = _device(args)
+    device = _rank_device(args, mesh)
     scene, meta, eye = _build_scene(args, device)
+    if mesh is not None:
+        scene = shard_scene(scene, mesh)
     cfg = _make_cfg(args).replace(width=64, height=64,
                                   max_bounces=min(args.bounces, 4))
     view = torch.as_tensor(Camera(eye=args.eye or eye,
                                   center=[0, 0, 0]).view_matrix,
                            device=device)
-    n_pix = padded_pixels(cfg)
+    rows = padded_pixels(cfg, mesh) // mesh_size(mesh)
 
-    # Target: the true scene rendered at a fixed seed.
-    frame = make_sharded_frame_fn(None, meta, cfg)
+    # Target: the true scene rendered at a fixed seed (this rank's rows).
+    frame = make_sharded_frame_fn(mesh, meta, cfg)
     with torch.no_grad():
-        target = frame(torch.zeros((n_pix, 3), device=device), 1, True,
+        target = frame(torch.zeros((rows, 3), device=device), 1, True,
                        view, scene)
 
     # Perturb and recover.
@@ -247,15 +355,15 @@ def cmd_train(args):
     params = {k: perturb(k, v).detach().clone().requires_grad_(True)
               for k, v in true_params.items()}
     optimizer = torch.optim.Adam(params.values(), lr=args.lr)
-    step = make_train_step(None, scene, meta, cfg, apply_params, optimizer)
+    step = make_train_step(mesh, scene, meta, cfg, apply_params, optimizer)
     for i in range(args.steps):
         loss = step(params, target, 1, view)
         if (i + 1) % max(args.steps // 10, 1) == 0:
-            print(f"step {i+1:4d}  loss {float(loss):.6f}")
+            _say(mesh, f"step {i+1:4d}  loss {float(loss):.6f}")
     err = {k: float(torch.max(torch.abs(params[k].detach() - v)))
            for k, v in true_params.items()}
-    print("max param error per group:",
-          json.dumps({k: round(v, 4) for k, v in err.items()}))
+    _say(mesh, "max param error per group:",
+         json.dumps({k: round(v, 4) for k, v in err.items()}))
 
 
 def cmd_info(args):

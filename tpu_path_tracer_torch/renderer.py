@@ -3,8 +3,9 @@
 
 Owns the framebuffer, the frame counter, the camera-motion reset, the FPS
 cap, the stats, the periodic perf log and checkpoint/resume, and maps the
-reference's loop (``renderer.js:163-215``) onto
-``integrator.render.render_frame``:
+reference's loop (``renderer.js:163-215``) onto the frame of
+``dist.render_dist.make_sharded_frame_fn`` (in one process, that of
+``integrator.render.render_frame``):
 
 * FPS cap via sleep (``renderer.js:206-209``);
 * stats and perf logs behind the same flags as ``renderParams``
@@ -14,8 +15,13 @@ reference's loop (``renderer.js:163-215``) onto
 * checkpoints in the JAX package's NPZ format (``utils.checkpoint``).
 
 The framebuffer lives on the scene's device and is updated in place every
-frame.  Sharding across devices is not ported yet (ROADMAP Queue 1 item
-11): a ``mesh`` raises.
+frame.  With a ``mesh`` (``dist.sharding.make_mesh``) the renderer runs on
+every rank of it, as the JAX one runs over a device mesh
+(``renderer.py:58-70``): ``framebuffer`` is this rank's chunk of the padded
+``[padded_pixels, 3]`` framebuffer, the scene is replicated from the first
+rank, and ``display``, ``save_png`` and ``save_checkpoint`` gather the
+chunks in rank order, so every rank must call them; only the first rank
+writes files and prints logs.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import torch
 from .core.camera import Camera
 from .core.config import RenderConfig
 from .core.types import SceneData, SceneMeta
+from .dist.render_dist import make_sharded_frame_fn, padded_pixels
+from .dist.sharding import (gather_rows, mesh_rank, mesh_size, rank_device,
+                            ray_sharding, shard_scene)
 from .integrator import film
-from .integrator.render import render_frame
 from .utils import checkpoint as ckpt
 from .utils.image import write_png
 from .utils.profiling import FrameStats
@@ -42,22 +50,26 @@ class Renderer:
                  show_fps: bool = False, max_fps: float = 0.0,
                  log_count_of_samples: bool = False,
                  log_performance: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "rendering over a device mesh is not ported yet: ROADMAP "
-                "Queue 1 item 11 (torch.distributed)")
         self.scene = scene
         self.meta = meta
         self.cfg = cfg
         self.camera = camera or Camera(eye=[0.5, 0.0, 2.5])  # index.js:39
+        self.mesh = mesh
         self.show_fps = show_fps
         self.max_fps = max_fps          # renderParams.maxFPS, index.js:30
         self.log_count_of_samples = log_count_of_samples
         self.log_performance = log_performance
         self.stats = FrameStats()
         self.frame_num = 0
-        self.device = scene.quads.q.device
-        self.framebuffer = torch.zeros((cfg.width * cfg.height, 3),
+        if mesh is not None:
+            self.device = rank_device(mesh)
+            self.scene = shard_scene(scene, mesh)
+            self._n_pixels = padded_pixels(cfg, mesh)
+        else:
+            self.device = scene.quads.q.device
+            self._n_pixels = cfg.width * cfg.height
+        self._root = mesh_rank(mesh) == 0
+        self.framebuffer = torch.zeros((self._n_pixels // mesh_size(mesh), 3),
                                        dtype=torch.float32,
                                        device=self.device)
 
@@ -69,10 +81,10 @@ class Renderer:
         if reset:
             self.frame_num = 0
         self.frame_num += 1
-        render_frame(self.framebuffer, self.frame_num, bool(reset),
-                     self.camera.view_matrix, self.scene, self.meta,
-                     self.cfg)
-        if self.log_count_of_samples:  # renderer.js:169-170
+        make_sharded_frame_fn(self.mesh, self.meta, self.cfg)(
+            self.framebuffer, self.frame_num, bool(reset),
+            self.camera.view_matrix, self.scene)
+        if self.log_count_of_samples and self._root:  # renderer.js:169-170
             print(f"Total Samples: "
                   f"{self.frame_num * self.cfg.samples_per_pixel}")
         return self.framebuffer
@@ -91,7 +103,8 @@ class Renderer:
                     and self.device.type == "cuda"):
                 torch.cuda.synchronize(self.device)
             self.stats.end()
-            if self.log_performance and self.stats.frames % 100 == 0:
+            if (self.log_performance and self._root
+                    and self.stats.frames % 100 == 0):
                 print(self.stats.report(rays))  # renderer.js:197-204
             if (checkpoint_every and checkpoint_path
                     and (i + 1) % checkpoint_every == 0):
@@ -111,27 +124,43 @@ class Renderer:
         self.frame_num = 0
         return self.step(reset=True)
 
+    def _global_framebuffer(self):
+        """The whole padded framebuffer, gathered from every rank."""
+        if self.mesh is None:
+            return self.framebuffer
+        return gather_rows(self.framebuffer, self.mesh)
+
     def display(self) -> np.ndarray:
-        """Tone-mapped uint8 image [H, W, 3] (fragment.js:22-36)."""
-        img = film.to_uint8(film.display_transform(self.framebuffer,
-                                                   self.frame_num))
+        """Tone-mapped uint8 image [H, W, 3] (fragment.js:22-36); with a
+        mesh, of the gathered framebuffer's first W*H rows."""
+        n = self.cfg.width * self.cfg.height
+        img = film.to_uint8(film.display_transform(
+            self._global_framebuffer()[:n], self.frame_num))
         return img.cpu().numpy().reshape(self.cfg.height, self.cfg.width, 3)
 
     def save_png(self, path: str):
-        write_png(path, self.display())
+        img = self.display()
+        if self._root:
+            write_png(path, img)
 
     def save_checkpoint(self, path: str):
-        ckpt.save_checkpoint(path, self.framebuffer, self.frame_num,
-                             self.camera)
+        """With a mesh: the gathered padded framebuffer, the JAX sharded
+        renderer's layout, written by the first rank."""
+        fb = self._global_framebuffer()
+        if self._root:
+            ckpt.save_checkpoint(path, fb, self.frame_num, self.camera)
 
     def load_checkpoint(self, path: str):
         fb, frame_num, cam = ckpt.load_checkpoint(path)
-        if fb.shape != tuple(self.framebuffer.shape):
+        if fb.shape != (self._n_pixels, 3):
             raise ValueError(
                 f"checkpoint framebuffer {fb.shape} does not match "
-                f"{tuple(self.framebuffer.shape)} of this renderer")
-        self.framebuffer = torch.tensor(fb, dtype=torch.float32,
-                                        device=self.device)
+                f"{(self._n_pixels, 3)} of this renderer")
+        fb = torch.tensor(fb, dtype=torch.float32)
+        if self.mesh is not None:
+            self.framebuffer = ray_sharding(self.mesh)(fb)
+        else:
+            self.framebuffer = fb.to(self.device)
         self.frame_num = frame_num
         if cam is not None:
             self.camera = cam
