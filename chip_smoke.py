@@ -98,12 +98,25 @@ Phases, each printed on its own line; any failure exits non-zero:
     ``measure_scaling`` at 512x512 over the two ranks (sharding overhead:
     they share one card); then ``render --devices 2 --megakernel`` against
     the one-process image.  Times stand beside the card's name and power
-    limit.
+    limit;
+19. bench: ``python -m tpu_path_tracer_torch bench``, the port's harness
+    over bench.py's workloads (``tpu_path_tracer_torch.bench``), in a
+    subprocess: exit 0, every row there (the monkey row may be skipped
+    without its asset), the headline equal to ``fwd_bwd_megakernel_mrays``,
+    every row's device time, bench.py's sanity gate; its line is printed
+    with the phase.  When the script has used too much of its budget
+    (SMOKE_BUDGET_S), three of its workloads alone;
+20. preview_ranks: the tty preview with a scripted terminal (keys a, w,
+    left, q) on two gloo ranks sharing the card, against the one-process
+    preview: what the first rank painted, bit for bit, the camera on both
+    ranks at every frame, the forward launches of each rank; and without a
+    terminal both ranks fail.
 
 Bounds: each kernel's least time on the card, the larger of its FP32
 operations over the card's FP32 peak and its bytes (inputs read once,
 outputs written once) over the memory rate, counted from this run's inputs
-and what the paths actually did.
+and what the paths actually did (``tpu_path_tracer_torch.utils.bounds``,
+the count the harness's ``sol`` row reads too).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  In it the forward megakernel's
@@ -130,6 +143,15 @@ import statistics
 import subprocess
 import sys
 import time
+
+from tpu_path_tracer_torch.bench import (KERNEL_MEAN_RTOL, KERNEL_MIN_SHARE,
+                                         KERNEL_TOL, mesh_scene)
+from tpu_path_tracer_torch.utils.bounds import (
+    EDGE_REST_FLOPS, EDGE_SIGN_FLOPS, PAIR_INV_FLOPS, PAIR_SLAB_FLOPS,
+    PEAK_FP32_FLOPS, PEAK_HBM_BYTES, bound, counted_walk, megakernel_bound,
+    pack_bound, traversal_bound)
+from tpu_path_tracer_torch.utils.profiling import (device_us, kernel_rows,
+                                                   profile_device_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
@@ -158,16 +180,9 @@ EMIT_REPLACES = {
     "emit_pair": "tpu_path_tracer/kernels/pallas/traversal.py:1755",
     "pair_advance": "tpu_path_tracer/kernels/pallas/traversal.py:1755"}
 
-# Phase 3: per-pixel tolerance of the JAX package's own kernel parity tests
-# (tests/test_pallas.py:52).  The kernel and the wavefront evaluate sinf,
-# cosf and logf with different implementations (CUDA's libdevice inside
-# the kernel, torch's kernels outside), which differ in the last ulp; a
-# glass, fog or roulette decision taken right at its threshold can flip,
-# and that one path then differs completely.  Those rare flips are the
-# expected outliers, hence a share of pixels and not every pixel.
-KERNEL_TOL = 2e-4
-KERNEL_MIN_SHARE = 0.99
-KERNEL_MEAN_RTOL = 1e-3
+# Phase 3's tolerance (KERNEL_TOL, KERNEL_MIN_SHARE, KERNEL_MEAN_RTOL) is
+# the harness's (tpu_path_tracer_torch.bench), which holds the forward
+# kernel to it before each of its timed rows.
 # Phase 4: per-pixel tolerance of tests/test_golden.py:104.  The goldens
 # were rendered by JAX under XLA's CPU compiler, which contracts a*b+c into
 # fused multiply-adds; the port rounds every operation on its own (the
@@ -239,48 +254,6 @@ PAIR_ROUNDING_MAX = 2.0
 PAIR_HELD_MIN_SHARE = 0.7
 PAIR_OTHER_TRIANGLE_MAX_SHARE = 2e-3
 PAIR_FRAME_MEAN_RTOL = 1e-2
-# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): FP32
-# outside the tensor cores and HBM bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
-# FP32 operations per test, counted by hand in csrc/tracer.cuh and
-# csrc/traversal.cu, each add, multiply, division, square root, min, max
-# and compare one operation; integer work (the PCG stream, indexing) is not
-# counted, so the bounds are lower bounds.
-ROW_FLOPS = 63       # a node row: two box_enter (12 for t0/t1, 6 NaN
-#                      checks, 11 min/max, 2 compares) and the order compare
-PACK_TRI_FLOPS = 15  # triangle_edges: ab, ac (6), ab x ac (9)
-# pair.cuh edge_test: every test its 3 x 11 edge volumes and 6 sign
-# compares; only a test whose three volumes share a strict sign goes on to
-# tn 6, den 2, 1/den, t, 3 s_k/den, |den| and 6 compares 7.
-EDGE_SIGN_FLOPS = 39
-EDGE_REST_FLOPS = 20
-PAIR_SLAB_FLOPS = 25  # chunk_slab_hit: 12 for t0/t1, 10 min/max, 3 compares
-PAIR_INV_FLOPS = 12   # pair_inv_dir, once per pair-bin row
-# The megakernels' hit search (tracer.cuh find_hit).  A block derives each
-# triangle's edges and normal, each sphere's R * R and the light's plane
-# once (prepare_scene), and a ray its a = d . d and 1 / a once per bounce,
-# so no test counts them again.  Quads and volume spheres count only what
-# their early outs leave, on the rays of the run (megakernel_bound).
-RAY_FLOPS = 6        # a = d . d and 1 / a, per lane-bounce
-RAY_LEN_FLOPS = 2    # the ray's length, per lane-bounce with volumes
-SPHERE_PASS_FLOPS = 2  # with volumes, per sphere: its draw scaled to
-#                        [0, 1), the ISOTROPIC compare of the two passes
-SPHERE_FLOPS = 29    # a solid sphere: roots 23, root choice, running best
-QUAD_CULL_FLOPS = 7  # every quad: n . d, the back-face and parallel compares
-QUAD_FLOPS = 51      # a quad the ray faces: t, alpha, beta, compares
-MT_PRE_FLOPS = 45    # triangle_mt_pre and the running-best compare (also
-#                      the traversal's triangle test)
-SPAN_FLOPS = 29      # an ISOTROPIC sphere: roots 23, its span's 6
-FLIGHT_FLOPS = 7     # a span before the closest hit: length, log, compare
-EVENT_FLOPS = 3      # a flight that ends inside: t and the running best
-SHADE_FLOPS = 200    # hit point, normal, BSDF sample, roulette (about)
-NEE_FLOPS = 120      # light sample, light and lambertian pdfs, MIS (about)
-# The backward kernel replays each bounce's forward and runs its adjoint,
-# counted as twice the forward's operations.
-BWD_FLOPS_FACTOR = 3
-
-
 class SmokeFailure(Exception):
     pass
 
@@ -565,25 +538,6 @@ def timing_phase(torch, pt, device, smi, warmup=2, frames=10):
               ms_per_frame=ms, mray_per_s=rays / ms / 1e3,
               ms_min=min(t), ms_max=max(t), frames=len(t), card=smi)
     return out
-
-
-def device_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
-
-
-def kernel_rows(prof):
-    """The device kernels of a profile, by name, busiest first.  A CPU op
-    that launched a kernel reports the same device time again, and so does
-    a user annotation (the optimizer's step), so both are left out."""
-    from torch.autograd import DeviceType
-
-    annotations = {e.name for e in prof.events()
-                   if getattr(e, "is_user_annotation", False)}
-    return sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
-                   and e.key not in annotations),
-                  key=device_us, reverse=True)
 
 
 def profile_phase(torch, pt, device, frame_ms, frames=8):
@@ -925,164 +879,6 @@ def train_timing_phase(torch, pt, device, smi):
     return out, kernel_ms
 
 
-def bound(flops, nbytes):
-    """The least time (ms) of the work on the card and what bounds it."""
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
-
-
-@contextlib.contextmanager
-def counted_work(work, scene):
-    """Count, over every bounce of the wavefront, its live lanes, the
-    (lane, quad) pairs whose quad faces the ray, the (lane, ISOTROPIC
-    sphere) pairs whose span lies before the closest solid hit, and those
-    whose free flight ends inside it: the work the megakernels' early outs
-    leave on these paths.  The kernel also clips a span by an earlier
-    sphere's volume event, so the last two may count a few more."""
-    import torch
-
-    from tpu_path_tracer_torch.core.config import ISOTROPIC
-    from tpu_path_tracer_torch.integrator import path_tracer
-    from tpu_path_tracer_torch.kernels import intersect
-
-    find, volume_t = path_tracer.find_hit, intersect.volume_t
-    mats = scene.materials
-    iso = mats.mtype[scene.spheres.material_id] == ISOTROPIC
-
-    def counted(rand_state, ray, scene_, meta, cfg, alive=None):
-        live = (torch.ones(ray.origin.shape[0], dtype=torch.bool,
-                           device=ray.origin.device)
-                if alive is None else alive)
-        work["lanes"] += int(live.sum())
-        if scene.quads.count:
-            den = (scene.quads.normal[None] * ray.dir[:, None]).sum(-1)
-            faces = (den <= 0.0) & (den.abs() >= 1e-8) & live[:, None]
-            work["facing_quads"] += int(faces.sum())
-        return find(rand_state, ray, scene_, meta, cfg, alive=alive)
-
-    def counted_volume_t(o, d, center, radius, nid, u, t_min, t_max):
-        span = intersect.volume_interval(o, d, center, radius, t_min,
-                                         t_max)[2] & iso
-        tv = volume_t(o, d, center, radius, nid, u, t_min, t_max)
-        work["spans"] += int(span.sum())
-        work["events"] += int(((tv < intersect.INF) & iso).sum())
-        return tv
-
-    path_tracer.find_hit, intersect.volume_t = counted, counted_volume_t
-    try:
-        yield
-    finally:
-        path_tracer.find_hit, intersect.volume_t = find, volume_t
-
-
-def megakernel_bound(torch, pt, device, scene, meta, cfg, eye, backward):
-    """Bound of one megakernel launch (``backward``: of the backward) on
-    these inputs: the FP32 operations of the bounces the paths took, from
-    the plain wavefront at frame 1, and the bytes of the state, pixels,
-    tables and radiance (for the backward also the cotangent in and the
-    table gradients out)."""
-    from tpu_path_tracer_torch.core import rng
-    from tpu_path_tracer_torch.core.config import ISOTROPIC
-    from tpu_path_tracer_torch.integrator.render import pixel_grid
-    from tpu_path_tracer_torch.kernels import megakernel as mk
-
-    work = collections.Counter()
-    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
-    view = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
-                           device=device)
-    with torch.no_grad(), counted_work(work, scene):
-        mk.path_trace_pixels_reference(rng.seed(pix, 1), view, px, py,
-                                       scene, meta, cfg)
-    n_sph = scene.spheres.count
-    n_vol = (int((scene.materials.mtype[scene.spheres.material_id]
-                  == ISOTROPIC).sum()) if meta.has_volumes else 0)
-    per_bounce = (RAY_FLOPS
-                  + ((RAY_LEN_FLOPS + n_sph * SPHERE_PASS_FLOPS
-                      + n_vol * SPAN_FLOPS) if meta.has_volumes else 0)
-                  + (n_sph - n_vol) * SPHERE_FLOPS
-                  + scene.quads.count * QUAD_CULL_FLOPS
-                  + scene.triangles.count * MT_PRE_FLOPS
-                  + SHADE_FLOPS
-                  + (NEE_FLOPS if cfg.importance_sampling and meta.has_light
-                     else 0))
-    flops = (work["lanes"] * per_bounce + work["facing_quads"] * QUAD_FLOPS
-             + ((work["spans"] * FLIGHT_FLOPS + work["events"] * EVENT_FLOPS)
-                if meta.has_volumes else 0))
-    table_bytes = 4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
-    nbytes = px.shape[0] * (3 * 4 + 3 * 4) + table_bytes
-    if backward:
-        flops *= BWD_FLOPS_FACTOR
-        nbytes += px.shape[0] * 3 * 4 + table_bytes
-    ms, by = bound(flops, nbytes)
-    return {"bound_ms": ms, "bound_by": by, "lane_bounces": work["lanes"],
-            "facing_quads": work["facing_quads"], "spans": work["spans"],
-            "events": work["events"], "flops": flops, "bytes": nbytes}
-
-
-def mesh_scene(pt, device, subdivisions, timings=None):
-    """bench.py:301's mesh scene: white back and front walls, the emissive
-    quad and a mirror icosphere of radius 0.8, median BVH."""
-    b = pt.SceneBuilder()
-    b.add_material("default", pt.LAMBERTIAN, [1, 0, 0])
-    white = b.add_material("white", pt.LAMBERTIAN, [0.73, 0.73, 0.73])
-    light = b.add_material("light", pt.LAMBERTIAN, [0, 0, 0],
-                           emission=[2, 2, 2])
-    mirror = b.add_material("mirror", pt.MIRROR, [0.9, 0.9, 0.9])
-    b.add_quad([-2, -2, -2], [4, 0, 0], [0, 4, 0], white)
-    b.add_quad([-2, 2, -2], [4, 0, 0], [0, 0, 4], light)
-    b.add_quad([-2, -2, 2], [4, 0, 0], [0, 0, -4], white)
-    b.add_mesh(pt.procedural.icosphere(subdivisions=subdivisions,
-                                       radius=0.8), mirror)
-    return b.build(bvh="median", timings=timings, device=device)
-
-
-def traversal_bound(n_rays, n_rows, n_tris, work):
-    """FP32 operations of the walks these rays took (counted by the
-    kernel's own walk on the host, ``counted_walk``) and the bytes of rays
-    in, results out, and the node and triangle rows read once."""
-    flops = (work["rows"] * ROW_FLOPS + work["tri_tests"] * MT_PRE_FLOPS
-             + 3 * n_rays)
-    nbytes = n_rays * (7 * 4 + 2 * 4) + n_rows * 64 + n_tris * 48
-    ms, by = bound(flops, nbytes)
-    return {"bound_ms": ms, "bound_by": by, "flops": flops, "bytes": nbytes}
-
-
-def pack_bound(n_nodes, n_rows, n_tris):
-    """The packing's bytes (the BVH's bounds and five int64 fields, the
-    corners in; node and triangle rows out) and operations."""
-    ms, by = bound(n_tris * PACK_TRI_FLOPS,
-                   n_nodes * 64 + n_tris * 36 + n_rows * 64 + n_tris * 48)
-    return {"bound_ms": ms, "bound_by": by}
-
-
-def counted_walk(torch, rows, tri_rows, o, d, t0, t_min):
-    """The kernel's walk run on the host (``csrc/traversal.cu``
-    ``tpt_bvh_walk_host``, the same __host__ __device__ code with a work
-    counter) over the tables the card packed: (t, index, node rows
-    fetched, triangle tests)."""
-    import ctypes
-
-    from tpu_path_tracer_torch.kernels import _build
-    from tpu_path_tracer_torch.kernels.intersect import INF
-
-    fn = _build.load().tpt_bvh_walk_host
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 5 + [i, f, f, p, p, p]
-    fn.restype = None
-    rows, tri_rows, o, d, t0 = (x.detach().cpu().contiguous()
-                                for x in (rows, tri_rows, o, d, t0))
-    n = o.shape[0]
-    t = torch.empty(n)
-    idx = torch.empty(n, dtype=torch.int32)
-    work = torch.zeros(2, dtype=torch.int64)
-    fn(o.data_ptr(), d.data_ptr(), t0.data_ptr(), rows.data_ptr(),
-       tri_rows.data_ptr(), n, t_min, INF, t.data_ptr(), idx.data_ptr(),
-       work.data_ptr())
-    return t.numpy(), idx.numpy(), int(work[0]), int(work[1])
-
-
 @contextlib.contextmanager
 def recorded_traversal(calls):
     """Keep the arguments of every BVH closest-hit search find_hit makes,
@@ -1102,29 +898,6 @@ def recorded_traversal(calls):
         yield
     finally:
         traversal.closest_hit = kernel
-
-
-def profile_device_ms(torch, fn, calls, names):
-    """Device ms per call of ``fn`` by kernel-name group (torch.profiler):
-    ``names`` maps a group to substrings of kernel names; "all" sums every
-    kernel.  "not measured" where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
-    if not rows:
-        return {k: "not measured" for k in list(names) + ["all"]}, []
-    out = {k: sum(device_us(e) for e in rows
-                  if any(s in e.key for s in subs)) / 1e3 / calls
-           for k, subs in names.items()}
-    out["all"] = sum(device_us(e) for e in rows) / 1e3 / calls
-    return out, rows
 
 
 def time_events(torch, fn, calls):
@@ -1184,7 +957,7 @@ def traversal_vs_plain(torch, scene, meta, rays, t_min, name):
                                          meta.max_leaf, stats=stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - start) * 1e3
-    t_h, i_h, n_rows, n_tests = counted_walk(torch, rows, tri_rows, o, d, t0,
+    t_h, i_h, n_rows, n_tests = counted_walk(rows, tri_rows, o, d, t0,
                                              t_min)
     t_k, i_k, t_p, i_p = (x.cpu().numpy() for x in (t_k, i_k, t_p, i_p))
     n = len(i_p)
@@ -1238,7 +1011,7 @@ def traversal_phase(torch, pt, device, smi):
     out = {}
     for sub in MESH_SUBDIVISIONS:
         timings = {}
-        scene, meta = mesh_scene(pt, device, sub, timings)
+        scene, meta = mesh_scene(sub, device, timings)
         bvh, tris = scene.bvh, scene.triangles
         rays = tuple(torch.from_numpy(x).to(device) for x in traversal_rays(
             TRAV_RAYS, sub, 0.8, tris.a.cpu().numpy()))
@@ -1253,7 +1026,7 @@ def traversal_phase(torch, pt, device, smi):
             torch, lambda: traversal.pack_bvh(bvh, tris), 20)
         pack_plain_ms = time_events(
             torch, lambda: traversal.pack_bvh_plain(bvh, tris), 5)
-        dev_ms, _ = profile_device_ms(torch, call, 10,
+        dev_ms, _ = profile_device_ms(call, 10,
                                       {"kernel": [TRAV_KERNEL],
                                        "pack": [PACK_KERNEL]})
         b = traversal_bound(TRAV_RAYS, row["rows"], tris.count, work)
@@ -1318,7 +1091,7 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
     from tpu_path_tracer_torch.integrator.render import render_frame
     from tpu_path_tracer_torch.kernels import traversal
 
-    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     check(meta.traversal == "bvh", "the mesh scene has no BVH")
     cfg = pt.RenderConfig(**MESH_KW)
     renderer = pt.Renderer(scene, meta, cfg,
@@ -1381,7 +1154,7 @@ def mesh_timing_phase(torch, pt, device, smi):
     from tpu_path_tracer_torch.kernels import traversal
 
     view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
-    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**MESH_KW)
     runs = {"plain": (1, 3), "kernel": (2, 8)}   # warm-up, timed frames
     samples = {"plain": [], "kernel": []}
@@ -1409,9 +1182,9 @@ def mesh_timing_phase(torch, pt, device, smi):
         frame[0] += 1
         render_frame(fb, frame[0], frame[0] == 1, view, scene, meta, cfg)
 
-    dev_ms, rows = profile_device_ms(
-        torch, one_frame, 4, {"traversal": [TRAV_KERNEL],
-                              "pack": [PACK_KERNEL]})
+    dev_ms, rows = profile_device_ms(one_frame, 4,
+                                     {"traversal": [TRAV_KERNEL],
+                                      "pack": [PACK_KERNEL]})
     pack_ms = time_events(
         torch, lambda: traversal.pack_bvh(scene.bvh, scene.triangles), 20)
     phase("mesh_profile", tris=scene.triangles.count,
@@ -1434,7 +1207,7 @@ def mesh_timing_phase(torch, pt, device, smi):
     out["bound_ms_per_launch"] = mesh_launches(torch, pt, scene, meta, cfg,
                                                view, smi)
 
-    big, big_meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[1])
+    big, big_meta = mesh_scene(MESH_SUBDIVISIONS[1], device)
     big_cfg = cfg.replace(width=2 * cfg.width, height=2 * cfg.height)
     t = time_frames(torch, pt, device, big, big_meta, big_cfg, view, 1 + 4)
     phase("mesh_timing", version="kernel", tris=big.triangles.count,
@@ -1462,13 +1235,13 @@ def mesh_launches(torch, pt, scene, meta, cfg, view, smi):
     bounds = []
     for bounce, (o, d, bvh, tris, t_min, t0) in enumerate(calls):
         rows, tri_rows = traversal.pack_bvh(bvh, tris)
-        _, _, n_rows, n_tests = counted_walk(torch, rows, tri_rows, o, d, t0,
+        _, _, n_rows, n_tests = counted_walk(rows, tri_rows, o, d, t0,
                                              t_min)
         b = traversal_bound(o.shape[0], rows.shape[0], tris.count,
                             {"rows": n_rows, "tri_tests": n_tests})
         dev_ms, _ = profile_device_ms(
-            torch, lambda: traversal.closest_hit(o, d, bvh, tris, t_min, t0),
-            10, {"kernel": [TRAV_KERNEL]})
+            lambda: traversal.closest_hit(o, d, bvh, tris, t_min, t0), 10,
+            {"kernel": [TRAV_KERNEL]})
         live = max(int((t0 >= 0).sum()), 1)
         phase("mesh_launch", bounce=bounce, rays=o.shape[0], live_rays=live,
               row_fetches_per_live_ray=n_rows / live,
@@ -1487,7 +1260,7 @@ def mesh_train_phase(torch, pt, device, steps=3):
     from tpu_path_tracer_torch.dist import render_dist
     from tpu_path_tracer_torch.kernels import traversal
 
-    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**MESH_KW)
     view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
     frame = render_dist.make_sharded_frame_fn(None, meta, cfg)
@@ -2025,7 +1798,7 @@ def pair_phase(torch, pt, device, smi):
     kernel_names = {"pairbin": "pairbin_sweep_kernel",
                     "pair": "pair_sweep_kernel"}
     for sub in MESH_SUBDIVISIONS:
-        scene, _ = mesh_scene(pt, device, sub)
+        scene, _ = mesh_scene(sub, device)
         bvh, tris = scene.bvh, scene.triangles
         verts = [x.cpu().numpy() for x in (tris.a, tris.b, tris.c)]
         o_np, d_np, t0_np = traversal_rays(TRAV_RAYS, sub, 0.8, verts[0])
@@ -2038,7 +1811,7 @@ def pair_phase(torch, pt, device, smi):
 
         t_w, i_w = (x.cpu().numpy() for x in bvh_call())
         bvh_call_ms = time_events(torch, bvh_call, 10)
-        bvh_dev, _ = profile_device_ms(torch, bvh_call, 5,
+        bvh_dev, _ = profile_device_ms(bvh_call, 5,
                                        {"kernel": [TRAV_KERNEL]})
         for route, entry in entries.items():
             calls, log = [], []
@@ -2084,10 +1857,10 @@ def pair_phase(torch, pt, device, smi):
                       "emit_kernels": sorted({
                           k for ks in EMIT_WRAPPER_KERNELS.values()
                           for k in ks})}
-            dev_ms, rows_prof = profile_device_ms(torch, call, 3, groups)
+            dev_ms, rows_prof = profile_device_ms(call, 3, groups)
             with torch_emission():
                 torch_call_ms = time_events(torch, call, 5)
-                torch_dev, _ = profile_device_ms(torch, call, 3, groups)
+                torch_dev, _ = profile_device_ms(call, 3, groups)
             measured = bool(rows_prof)
 
             def emission_ms(dev):
@@ -2164,7 +1937,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
     from tpu_path_tracer_torch.kernels import pair_sweep as ps
     from tpu_path_tracer_torch.kernels import traversal
 
-    scene, meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+    scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**MESH_KW)
     view = pt.Camera(eye=MESH_EYE, center=[0, 0, 0]).view_matrix
     n = cfg.width * cfg.height
@@ -2208,7 +1981,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
         replays = [b for name, b, _ in log if name == emit_name]
         wrapper = getattr(ps, emit_name)
         replay_ms, _ = profile_device_ms(
-            torch, lambda: [wrapper(*b) for b in replays], 2, {})
+            lambda: [wrapper(*b) for b in replays], 2, {})
         emitted[emit_name]["call_device_ms"] = (
             replay_ms["all"] / len(replays)
             if isinstance(replay_ms["all"], float) else replay_ms["all"])
@@ -2288,7 +2061,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
             groups.update({w: list(EMIT_WRAPPER_KERNELS[w])
                            for w in EMIT_WRAPPERS[route]})
         with pair_dispatch(route):
-            dev_ms, rows = profile_device_ms(torch, one_frame, 2, groups)
+            dev_ms, rows = profile_device_ms(one_frame, 2, groups)
         ms = statistics.median(t)
         phase("pair_timing", route=route or "bvh",
               tris=scene.triangles.count, size=f"{cfg.width}x{cfg.height}",
@@ -2623,13 +2396,15 @@ def dist_rank(job, out_dir):
     try:
         if job == "world1":
             out.update(dist_world1(torch, pt, device, mesh))
+        elif job == "preview":
+            out.update(preview_rank(pt, device, mesh))
         else:
             ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
             out["reference_frame"] = dist_frame(
                 torch, pt, device, mesh, ref, ref_meta,
                 pt.RenderConfig(width=512, height=512, max_bounces=4,
                                 use_megakernel=True), [0.5, 0.0, 2.5])
-            big, big_meta = mesh_scene(pt, device, MESH_SUBDIVISIONS[0])
+            big, big_meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
             out["mesh_frame"] = dist_frame(torch, pt, device, mesh, big,
                                            big_meta,
                                            pt.RenderConfig(**MESH_KW),
@@ -2781,9 +2556,191 @@ def dist_cli(smi, out_dir):
           f"from one process")
 
 
+# Phase 19 (bench): the harness as a user runs it, a subprocess of its own.
+# When what the script has used so far and BENCH_FULL_S would pass
+# SMOKE_BUDGET_S, the phase runs BENCH_REDUCED alone, one --workload each.
+# BENCH_FULL_S: the whole harness took 467 s on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W), 12 processes of its own; phases 1-18 take about 310 s.
+SMOKE_BUDGET_S = 900
+BENCH_FULL_S = 480
+BENCH_TIMEOUT = 900
+BENCH_REDUCED = ("fwd_bwd_megakernel", "mesh_bvh", "sol")
+# Phase 20 (preview_ranks): keys of the scripted terminal, one list a
+# frame, and the preview's renderer.
+PREVIEW_KEYS = ([], ["a"], [], ["w"], ["left"], [], ["q"])
+PREVIEW_KW = dict(width=128, height=96, max_bounces=4, use_megakernel=True)
+
+
+def bench_phase(smi, started):
+    """Phase 19: ``python -m tpu_path_tracer_torch bench`` on the card:
+    exit 0, one parsable last line, every row there (the monkey row may be
+    skipped for want of its asset), the headline equal to
+    ``fwd_bwd_megakernel_mrays``, each row's device time measured, and
+    fwd+bwd at least 1.5x the forward megakernel (bench.py's sanity
+    gate).  In the reduced form, BENCH_REDUCED one process each."""
+    from tpu_path_tracer_torch import bench
+
+    start = time.perf_counter()
+    if start - started + BENCH_FULL_S > SMOKE_BUDGET_S:
+        for name in BENCH_REDUCED:
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_path_tracer_torch.bench",
+                 "--workload", name], cwd=REPO, capture_output=True,
+                text=True, timeout=BENCH_TIMEOUT)
+            res, err = bench.parse_child(proc.returncode, proc.stdout,
+                                         proc.stderr)
+            phase("bench", workload=name, card=smi, result=res, error=err)
+            check(err is None, f"bench --workload {name}: {err}")
+        phase("bench", reduced=list(BENCH_REDUCED),
+              seconds=round(time.perf_counter() - start, 2))
+        return
+    proc = subprocess.run([sys.executable, "-m", "tpu_path_tracer_torch",
+                           "bench"], cwd=REPO, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - start
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    phase("bench", seconds=round(seconds, 2), card=smi, line=line)
+    extra = line["extra"]
+    check(extra["errors"] is None, f"bench rows failed: {extra['errors']}")
+    skipped = set(extra["skipped"] or ())
+    check(skipped <= {"mesh_monkey"}, f"bench skipped {skipped}")
+    for name in set(bench.WORKLOADS) - skipped - {"sol", "scaling"}:
+        check(isinstance(extra.get(f"{name}_device_ms"), float),
+              f"bench row {name}: device time "
+              f"{extra.get(f'{name}_device_ms')}")
+    for key in ("sol_frac_megakernel_fwd", "sol_frac_megakernel_fwd_bwd",
+                "sol_frac_traversal", "scaling_efficiency"):
+        check(isinstance(extra[key], float), f"bench {key}: {extra[key]}")
+    check(line["value"] is not None
+          and line["value"] == extra["fwd_bwd_megakernel_mrays"],
+          f"bench headline {line['value']}")
+    check(extra["fwd_bwd_megakernel_ms"] >= 1.5 * extra["fwd_pallas_ms"],
+          "bench sanity gate: fwd+bwd under 1.5x the forward megakernel")
+    check(extra["card"] == smi and extra["workload_rev"]
+          == bench.WORKLOAD_REV, f"bench card {extra['card']}")
+
+
+def scripted_preview(renderer, tty=True):
+    """``preview.run_preview`` on ``renderer`` before a stand-in terminal:
+    a tty (or, ``tty=False``, not one) whose keys come from PREVIEW_KEYS,
+    one list a frame.  Returns what it painted and the camera (eye,
+    center, up, moving, key_press) as each frame began and at the end."""
+    import io
+    import termios
+    import types
+    import tty as tty_module
+
+    import numpy as np
+    from tpu_path_tracer_torch import preview
+
+    keys = iter(PREVIEW_KEYS)
+    cams = []
+
+    def camera():
+        c = renderer.camera
+        cams.append(np.concatenate([c.eye, c.center, c.up,
+                                    [c.moving, c.key_press]])
+                    .astype(np.float32))
+
+    step = renderer.step
+
+    def stepping(*args, **kwargs):
+        camera()
+        return step(*args, **kwargs)
+
+    saved = (sys.stdin, termios.tcgetattr, termios.tcsetattr,
+             tty_module.setcbreak, preview._read_keys)
+    sys.stdin = types.SimpleNamespace(isatty=lambda: tty, fileno=lambda: 0)
+    termios.tcgetattr = lambda fd: []
+    termios.tcsetattr = lambda fd, when, attrs: None
+    tty_module.setcbreak = lambda fd: None
+    preview._read_keys = lambda timeout: next(keys)
+    renderer.step = stepping
+    painted = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(painted):
+            preview.run_preview(renderer, max_fps=1000.0)
+    finally:
+        (sys.stdin, termios.tcgetattr, termios.tcsetattr,
+         tty_module.setcbreak, preview._read_keys) = saved
+        renderer.step = step
+    camera()
+    return painted.getvalue(), np.stack(cams)
+
+
+def preview_renderer(pt, device, mesh):
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    return pt.Renderer(scene, meta, pt.RenderConfig(**PREVIEW_KW),
+                       pt.Camera(eye=[0.0, 0.0, 3.2], center=[0, 0, 0]),
+                       mesh=mesh)
+
+
+def preview_rank(pt, device, mesh):
+    """Phase 20 on one rank: the preview without a terminal (it must raise
+    on every rank), then the scripted preview, with the forward
+    megakernel's launches around it."""
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    try:
+        scripted_preview(preview_renderer(pt, device, mesh), tty=False)
+        no_tty = None
+    except RuntimeError as e:
+        no_tty = str(e)
+    renderer = preview_renderer(pt, device, mesh)
+    mk.LAUNCHES = 0
+    text, cams = scripted_preview(renderer)
+    return {"no_tty": no_tty, "painted": text, "cameras": cams.tolist(),
+            "frames": len(cams) - 1, "launches": mk.LAUNCHES}
+
+
+def preview_phase(smi):
+    """Phase 20: the scripted preview on two gloo ranks sharing the card
+    against the one-process preview: what the first rank painted, bit for
+    bit, and the camera on both ranks at every frame."""
+    import numpy as np
+    import torch
+
+    import tpu_path_tracer_torch as pt
+
+    out_dir = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
+                           "chip_smoke_dist")
+    os.makedirs(out_dir, exist_ok=True)
+    start = time.perf_counter()
+    two = run_ranks(2, "preview", out_dir)
+    text, cams = scripted_preview(preview_renderer(
+        pt, torch.device("cuda", 0), None))
+    frames = len(PREVIEW_KEYS)
+    phase("preview_ranks", gpu=smi, backend=two[0]["backend"],
+          devices=[r["device"] for r in two], size=f"{PREVIEW_KW['width']}x"
+          f"{PREVIEW_KW['height']}", keys=list(PREVIEW_KEYS),
+          frames=[r["frames"] for r in two],
+          launches=[r["launches"] for r in two],
+          painted_bytes=[len(r["painted"]) for r in two],
+          painted_equal=two[0]["painted"] == text,
+          cameras_equal=[bool(np.array_equal(np.float32(r["cameras"]), cams))
+                         for r in two],
+          no_tty=[r["no_tty"] for r in two],
+          seconds=round(time.perf_counter() - start, 2))
+    check(two[0]["painted"] == text and text.count("frame ") == frames,
+          "preview over two ranks: the first rank painted other frames "
+          "than one process")
+    check(two[1]["painted"] == "", "the second rank painted")
+    for r in two:
+        check(np.array_equal(np.float32(r["cameras"]), cams),
+              f"rank {r['rank']}: the camera differs from one process")
+        check(r["frames"] == frames and r["launches"] == frames,
+              f"rank {r['rank']}: {r['frames']} frames, {r['launches']} "
+              f"forward launches for {frames} frames")
+        check(r["no_tty"] is not None and "tty" in r["no_tty"],
+              f"rank {r['rank']}: no error without a terminal")
+
+
 def run():
     import torch
 
+    started = time.perf_counter()
     smi = device_phase(torch)
     import tpu_path_tracer_torch as pt
 
@@ -2806,13 +2763,14 @@ def run():
     pair_kernels = pair_main_path_phase(torch, pt, device, smi)
     user_layer_phase(torch, pt, device)
     dist_phase(smi)
+    bench_phase(smi, started)
+    preview_phase(smi)
     ref, ref_meta, _ = pt.builtin.reference_scene(device=device)
     fwd_bound = megakernel_bound(
-        torch, pt, device, ref, ref_meta,
-        pt.RenderConfig(width=512, height=512, max_bounces=4),
+        ref, ref_meta, pt.RenderConfig(width=512, height=512, max_bounces=4),
         [0.5, 0.0, 2.5], backward=False)
     cornell, cornell_meta, _ = pt.builtin.cornell_box(device=device)
-    bwd_bound = megakernel_bound(torch, pt, device, cornell, cornell_meta,
+    bwd_bound = megakernel_bound(cornell, cornell_meta,
                                  pt.RenderConfig(**TRAIN_KW), [0, 0, 3.2],
                                  backward=True)
     phase("bounds", megakernel_fwd=fwd_bound, megakernel_bwd=bwd_bound,

@@ -249,12 +249,12 @@ def traversal_inputs(torch, pt, device):
     t_min = pt.RenderConfig().t_min
     cases = {}
     for sub in cs.MESH_SUBDIVISIONS:
-        scene, _ = cs.mesh_scene(pt, device, sub)
+        scene, _ = cs.mesh_scene(sub, device)
         o, d, t0 = (torch.from_numpy(x).to(device) for x in cs.traversal_rays(
             cs.TRAV_RAYS, sub, 0.8, scene.triangles.a.cpu().numpy()))
         cases[f"bundle_{scene.triangles.count}"] = (
             o, d, scene.bvh, scene.triangles, t_min, t0)
-    scene, meta = cs.mesh_scene(pt, device, cs.MESH_SUBDIVISIONS[0])
+    scene, meta = cs.mesh_scene(cs.MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**cs.MESH_KW)
     view = pt.Camera(eye=cs.MESH_EYE, center=[0, 0, 0]).view_matrix
     calls = []
@@ -335,7 +335,7 @@ def pair_inputs(torch, pt, device):
     entries = {"pairbin": ps.pairbin_closest_hit, "pair": ps.pair_closest_hit}
     cases = {}
     for sub in cs.MESH_SUBDIVISIONS:
-        scene, _ = cs.mesh_scene(pt, device, sub)
+        scene, _ = cs.mesh_scene(sub, device)
         rays = tuple(torch.from_numpy(x).to(device) for x in cs.traversal_rays(
             cs.TRAV_RAYS, sub, 0.8, scene.triangles.a.cpu().numpy()))
         for route, entry in entries.items():
@@ -348,7 +348,7 @@ def pair_inputs(torch, pt, device):
     view = pt.Camera(eye=cs.MESH_EYE, center=[0, 0, 0]).view_matrix
     for sub, scale, suffix in ((cs.MESH_SUBDIVISIONS[0], 1, ""),
                                (cs.MESH_SUBDIVISIONS[1], 2, "_1024")):
-        scene, meta = cs.mesh_scene(pt, device, sub)
+        scene, meta = cs.mesh_scene(sub, device)
         cfg = pt.RenderConfig(**cs.MESH_KW)
         cfg = cfg.replace(width=scale * cfg.width, height=scale * cfg.height)
         for route in entries:

@@ -43,6 +43,7 @@ from tpu_path_tracer_torch.diff.params import apply_params, extract_params
 from tpu_path_tracer_torch.dist import render_dist, sharding
 from tpu_path_tracer_torch.utils import checkpoint as ckpt
 
+import chip_smoke
 import torch_dist_ranks as ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,6 +151,7 @@ def jobs(tmp_path_factory):
     j = Jobs(directory)
     j.start("main", 2)
     j.start("frames", 3)
+    j.start("preview", 2)
     yield j
     for procs, _ in j.running.values():
         for p in procs:
@@ -535,7 +537,119 @@ def test_cli_grad_check_ignores_the_flags(capsys):
     assert "grad-check: PASS" in out and "multihost" not in out
 
 
-def test_cli_interactive_over_ranks_names_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main(["render", "--interactive", "--devices", "2", "--device",
-                  "cpu"])
+# ------------------------------------------------------- (i) tty preview
+
+
+def test_preview_over_two_ranks_paints_the_one_process_frames(jobs):
+    """The scripted preview (keys a, w, left, q) over 2 ranks: the first
+    rank paints what ``run_preview`` paints in one process fed the same
+    keys, bit for bit, and the second paints nothing."""
+    text, _ = chip_smoke.scripted_preview(ranks.renderer(None))
+    res0, res1 = jobs.result("preview")
+    assert str(res0["preview.painted"]) == text
+    assert text.count("frame ") == len(chip_smoke.PREVIEW_KEYS)
+    assert str(res1["preview.painted"]) == ""
+
+
+def test_preview_over_two_ranks_shares_the_camera(jobs):
+    """Both ranks hold the one-process camera (eye, center, up and both
+    motion flags) as every frame begins, and after the last."""
+    _, cams = chip_smoke.scripted_preview(ranks.renderer(None))
+    assert len(cams) == len(chip_smoke.PREVIEW_KEYS) + 1
+    assert not np.array_equal(cams[0], cams[-1])   # the keys moved it
+    for res in jobs.result("preview"):
+        np.testing.assert_array_equal(res["preview.cameras"], cams)
+
+
+def test_preview_quit_ends_every_rank(jobs):
+    """'q' on the first rank ends the loop on both after the frame it came
+    with (one frame a list of keys), with the one-process frame count; the
+    ranks then leave the group and exit."""
+    one = ranks.renderer(None)
+    chip_smoke.scripted_preview(one)
+    for res in jobs.result("preview"):
+        assert len(res["preview.cameras"]) == len(chip_smoke.PREVIEW_KEYS) + 1
+        assert int(res["preview.frames"]) == one.frame_num
+
+
+def test_preview_without_a_tty_fails_every_rank(jobs):
+    """No terminal on the first rank: every rank raises before any frame,
+    and none waits for the others."""
+    for res in jobs.result("preview"):
+        assert "tty" in str(res["preview.no_tty"])
+
+
+INTERACTIVE = ["render", "--device", "cpu", "--width", "12", "--height",
+               "11", "--bounces", "2", "--interactive", "--max-fps", "20"]
+
+
+def _interactive_argvs(how, png):
+    cmd = [sys.executable, "-m", "tpu_path_tracer_torch", *INTERACTIVE,
+           "-o", str(png)]
+    if how == "devices":
+        return [cmd + ["--devices", "2"]], [_env()]
+    port = _free_port()
+    return [cmd + ["--multihost"]] * 2, [_env(2, r, port) for r in range(2)]
+
+
+@pytest.mark.parametrize("how", ["devices", "multihost"])
+def test_cli_interactive_over_ranks_without_a_tty_fails(tmp_path, how):
+    """``render --interactive`` over two ranks with no terminal: the
+    command fails on every rank, naming the tty, and does not hang."""
+    argvs, envs = _interactive_argvs(how, tmp_path / "o.png")
+    procs = [subprocess.Popen(a, env=e, cwd=REPO, stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, e in zip(argvs, envs)]
+    for p in procs:
+        out, _ = p.communicate(timeout=TIMEOUT)
+        assert p.returncode != 0 and "needs a tty" in out, out
+    assert not (tmp_path / "o.png").exists()
+
+
+@pytest.mark.parametrize("how", ["devices", "multihost"])
+def test_cli_interactive_over_ranks_in_a_terminal(tmp_path, how):
+    """``render --interactive`` over two ranks with a pseudo-terminal on
+    the first: it paints frames there, an orbit key moves the view, 'q'
+    ends every rank, and the first rank alone writes the PNG."""
+    import pty
+    import select
+
+    png = tmp_path / "o.png"
+    argvs, envs = _interactive_argvs(how, png)
+    master, slave = pty.openpty()
+    procs = [subprocess.Popen(argvs[0], env=envs[0], cwd=REPO, stdin=slave,
+                              stdout=slave, stderr=slave)]
+    procs += [subprocess.Popen(a, env=e, cwd=REPO, stdin=subprocess.DEVNULL,
+                               stdout=subprocess.DEVNULL,
+                               stderr=subprocess.DEVNULL)
+              for a, e in zip(argvs[1:], envs[1:])]
+    os.close(slave)
+    seen, sent = b"", []
+    deadline = time.monotonic() + TIMEOUT
+    try:
+        while procs[0].poll() is None and time.monotonic() < deadline:
+            if select.select([master], [], [], 0.1)[0]:
+                try:
+                    seen += os.read(master, 65536)
+                except OSError:   # the terminal closed with the process
+                    break
+            frames = seen.count(b"frame ")
+            if frames >= 2 and not sent:
+                os.write(master, b"a")
+                sent.append((frames, b"a"))
+            elif sent and len(sent) == 1 and frames >= sent[0][0] + 2:
+                os.write(master, b"q")
+                sent.append((frames, b"q"))
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        os.close(master)
+    text = seen.decode(errors="replace")
+    assert [p.returncode for p in procs] == [0] * len(procs), text[-2000:]
+    assert len(sent) == 2 and text.count("wrote ") == 1, text[-2000:]
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

@@ -18,7 +18,6 @@ import ctypes
 import dataclasses
 import pathlib
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +45,7 @@ from tpu_path_tracer_torch.core import rng as trng
 from tpu_path_tracer_torch.diff import params as tparams
 from tpu_path_tracer_torch.integrator.render import (path_trace_pixels as
                                                      tptp, pixel_grid)
-from tpu_path_tracer_torch.kernels import intersect, traversal
+from tpu_path_tracer_torch.kernels import _build, intersect, traversal
 from tpu_path_tracer_torch.scene import builder as tbuilder
 from tpu_path_tracer_torch.scene import objreader as tobj
 from tpu_path_tracer_torch.scene import procedural as tproc
@@ -306,18 +305,11 @@ def test_closest_hit_routes_by_device(walk_case):
 
 
 def build_host_walk(out_dir, csrc_dir):
-    """Compile ``csrc_dir/traversal.cu`` with g++; returns the loaded
-    library, or None without g++."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    """``csrc_dir/traversal.cu`` built with g++ (``_build.load_host_walk``)
+    and loaded; None without g++."""
+    if shutil.which("g++") is None:
         return None
-    # -ffp-contract=off: no a*b+c contraction, as nvcc's --fmad=false.
-    subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-x", "c++", "-I", str(csrc_dir),
-                    "-o", str(out_dir / "host_walk.so"),
-                    str(csrc_dir / "traversal.cu")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out_dir / "host_walk.so"))
+    lib = _build.load_host_walk(csrc_dir, out_dir)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tpt_bvh_pack_host.argtypes = [p] * 7 + [i] + [p] * 3 + [i, p, p]
     lib.tpt_bvh_pack_host.restype = None

@@ -333,12 +333,3 @@ def test_cli_interactive_needs_a_tty(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="tty"):
         cli.main(["render", "--interactive", "--width", "8", "--height", "8",
                   "--device", "cpu", "-o", str(tmp_path / "o.png")])
-
-
-@pytest.mark.parametrize("argv, item", [
-    (["bench"], "item 12"),
-])
-def test_cli_still_unported_names_its_item(argv, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        cli.main(argv)

@@ -378,14 +378,6 @@ def test_cli_train_runs(capsys):
     assert "max param error per group" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["bench"],
-])
-def test_cli_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cli.main(argv)
-
-
 @pytest.mark.parametrize("method", ["median", "lbvh"])
 def test_cli_renders_an_obj_through_a_bvh(tmp_path, method, capsys):
     """`render --scene mesh.obj --bvh <method> --device cpu` on an OBJ that

@@ -5,9 +5,10 @@ group on the CPU, run as::
         python tests/torch_dist_ranks.py JOB OUT_DIR
 
 It joins the group through ``init_distributed`` (the launcher's variables),
-runs JOB over a mesh of every rank and writes what it saw to
-``OUT_DIR/JOB.RANK.npz``.  The cases (scenes, sizes, parameter groups) are
-defined here once; the test file imports them.  Imports no JAX.
+runs JOB (``main``, ``frames``, ``resume``, ``preview``) over a mesh of
+every rank and writes what it saw to ``OUT_DIR/JOB.RANK.npz``.  The cases
+(scenes, sizes, parameter groups) are defined here once; the test file
+imports them.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 import tpu_path_tracer_torch as pt
+from chip_smoke import scripted_preview
 from tpu_path_tracer_torch.diff.params import apply_params, extract_params
 from tpu_path_tracer_torch.dist import render_dist
 from tpu_path_tracer_torch.dist.sharding import (gather_rows,
@@ -177,6 +179,18 @@ def _renderer(mesh, out, directory):
     out["from_jax.fb"] = gather_rows(from_jax.framebuffer, mesh)
 
 
+def _preview(mesh, out):
+    """The preview without a terminal on the first rank (every rank must
+    raise), then with a scripted one (chip_smoke.PREVIEW_KEYS)."""
+    try:
+        scripted_preview(renderer(mesh), tty=False)
+    except RuntimeError as e:
+        out["preview.no_tty"] = str(e)
+    r = renderer(mesh)
+    out["preview.painted"], out["preview.cameras"] = scripted_preview(r)
+    out["preview.frames"] = r.frame_num
+
+
 def _bootstrap(rank, out):
     import torch.distributed as dist
 
@@ -209,6 +223,8 @@ def main(job, directory):
                 device_type="cpu"))
         elif job == "frames":
             _frames(mesh, out)
+        elif job == "preview":
+            _preview(mesh, out)
         elif job == "resume":
             r = renderer(mesh)
             r.load_checkpoint(os.path.join(directory, "port.npz"))

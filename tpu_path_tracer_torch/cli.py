@@ -7,10 +7,13 @@ package's subcommands, flags and defaults::
     torchrun --nproc-per-node 2 -m tpu_path_tracer_torch render --multihost
     python -m tpu_path_tracer_torch train --params emission,bsdf
     python -m tpu_path_tracer_torch grad-check
+    python -m tpu_path_tracer_torch bench
     python -m tpu_path_tracer_torch info
 
 Everything runs on the CUDA devices; without one it raises, and
-``--device cpu`` is the only way onto the CPU.  ``--megakernel`` routes
+``--device cpu`` is the only way onto the CPU.  ``bench`` runs the port's
+benchmark harness (``tpu_path_tracer_torch.bench``), the counterpart of the
+repository's ``bench.py``.  ``--megakernel`` routes
 tracing, and training's gradients, through the CUDA megakernels (on the
 CPU, through their plain version); an OBJ mesh goes through a BVH and the
 CUDA traversal kernel.  ``render`` logs, checkpoints, resumes and previews
@@ -23,10 +26,10 @@ launcher (``torchrun``, or ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
 ``RANK`` set by hand) and spans all of it.  ``train`` spans every visible
 card by default, as the JAX command spans every device.  The first rank
 alone prints the report lines and writes the PNG and the checkpoint; a
-rank that fails fails the command.  ``grad-check`` takes both flags and
-ignores them, as in the JAX package.  What is not ported yet raises,
-naming the ROADMAP item that brings it: ``bench`` (item 12) and the
-preview over several ranks (item 13).
+rank that fails fails the command.  ``render --interactive`` over several
+ranks reads the keys and paints on the first rank, which must have the
+terminal (``preview``).  ``grad-check`` takes both flags and ignores them,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,11 +40,6 @@ import os
 import socket
 import sys
 import time
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                              f"{item}")
 
 
 def _device(args):
@@ -125,6 +123,10 @@ def _rank_main(rank, world, port, body, args):
 
     os.environ["LOCAL_RANK"] = str(rank)
     os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    if getattr(args, "interactive", False) and rank == 0:
+        # A spawned process gets /dev/null as sys.stdin; its descriptor 0
+        # is still the command's, the terminal the preview reads.
+        sys.stdin = open(0, closefd=False)
     if args.device == "cpu":
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     init_distributed(f"127.0.0.1:{port}", world, rank, device=args.device)
@@ -199,13 +201,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-_PREVIEW_OVER_RANKS = ("the tty preview over several ranks",
-                       "item 13 (rank 0 broadcasts the camera every frame)")
-
-
 def cmd_render(args):
-    if args.interactive and args.devices > 1:
-        _unported(*_PREVIEW_OVER_RANKS)
     _run_ranks(args, _render, args.devices)
 
 
@@ -214,8 +210,6 @@ def _render(args, mesh):
     from .dist.sharding import mesh_size
     from .renderer import Renderer
 
-    if args.interactive and mesh is not None:
-        _unported(*_PREVIEW_OVER_RANKS)
     device = _rank_device(args, mesh)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args)
@@ -230,7 +224,7 @@ def _render(args, mesh):
         from .preview import run_preview
         run_preview(r, max_fps=args.max_fps)
         r.save_png(args.output)
-        print(f"wrote {args.output}")
+        _say(mesh, f"wrote {args.output}")
         return
     t0 = time.time()
     r.render_animation(args.frames, checkpoint_path=args.checkpoint,
@@ -249,7 +243,9 @@ def _render(args, mesh):
 
 
 def cmd_bench(args):
-    _unported("the benchmark", "item 12 (the port's benchmark)")
+    from .bench import main as bench_main
+
+    sys.exit(bench_main(["--device", args.device]))
 
 
 def _pixels(cfg, device):
@@ -400,7 +396,11 @@ def main(argv=None):
     pr.add_argument("--max-fps", type=float, default=0.0)
     pr.set_defaults(fn=cmd_render)
 
-    pb = sub.add_parser("bench", help="run the benchmark harness")
+    pb = sub.add_parser("bench", help="run the benchmark harness: bench.py's "
+                        "workloads through the port, one process each")
+    pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the workloads run: the first CUDA device "
+                         "(fails without one) or the CPU")
     pb.set_defaults(fn=cmd_bench)
 
     pg = sub.add_parser("grad-check",

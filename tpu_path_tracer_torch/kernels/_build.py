@@ -30,6 +30,11 @@ GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
 
+# The traversal's walk built for the host (load_host_walk): g++ with no
+# a*b+c contraction, as nvcc's --fmad=false.
+HOST_FLAGS = ("-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+              "-x", "c++")
+
 _lib = None
 
 
@@ -92,6 +97,34 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def load_host_walk(csrc_dir: Path = CSRC_DIR,
+                   build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """``traversal.cu`` built for the host with g++ into ``build_dir`` if
+    this build is missing there, and loaded.  Without nvcc the file leaves
+    out its kernels and keeps the walk and the packer with their host entry
+    points (``tpt_bvh_walk_host``, ``tpt_bvh_pack_host``): the count of a
+    walk's work where there is no CUDA toolkit, and the kernel's code on
+    the CPU in the tests.  Raises without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH; the host build of the "
+                           "traversal needs a C++ compiler")
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in [csrc_dir / "traversal.cu", *sorted(csrc_dir.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    lib_path = build_dir / f"libtpt_walk_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = build_dir / f"{lib_path.name}.{os.getpid()}.tmp"
+        proc = subprocess.run([gxx, *HOST_FLAGS, "-I", str(csrc_dir), "-o",
+                               str(tmp), str(csrc_dir / "traversal.cu")],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on traversal.cu:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    return ctypes.CDLL(str(lib_path))
 
 
 def ptxas_report(log: str, name: str) -> dict:

@@ -4,8 +4,9 @@
 second meter (the reference's stats.js panel and its 100-frame log,
 ``renderer.js:145-150, 197-204``); :func:`device_trace` records a
 ``torch.profiler`` timeline where the JAX package records a
-``jax.profiler`` one.  The JAX ``cost_summary`` reads XLA's cost model and
-has no counterpart here.
+``jax.profiler`` one, and :func:`profile_device_ms` sums the device time of
+a call by kernel.  The JAX ``cost_summary`` reads XLA's cost model; the
+port's kernel bounds are counted in ``utils.bounds`` instead.
 """
 
 from __future__ import annotations
@@ -69,3 +70,55 @@ def device_trace(log_dir: str = "tpt_trace"):
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_us(e):
+    """Device microseconds of a ``key_averages()`` row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_rows(prof):
+    """The device kernels of a profile, by name, busiest first.  A CPU op
+    that launched a kernel reports the same device time again, and so does
+    a user annotation (the optimizer's step), so both are left out."""
+    from torch.autograd import DeviceType
+
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)}
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
+                   and e.key not in annotations),
+                  key=device_us, reverse=True)
+
+
+def profile_device_ms(fn, calls, names):
+    """Device ms per call of ``fn`` by kernel-name group (torch.profiler),
+    after one call outside the profile: ``names`` maps a group to
+    substrings of kernel names; "all" sums every kernel.  Returns that and
+    the profile's kernel rows; each group reads "not measured" where the
+    profiler saw no device time (the CPU, or a card it cannot trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    rows = kernel_rows(prof)
+    if not rows:
+        return {k: "not measured" for k in list(names) + ["all"]}, []
+    out = {k: sum(device_us(e) for e in rows
+                  if any(s in e.key for s in subs)) / 1e3 / calls
+           for k, subs in names.items()}
+    out["all"] = sum(device_us(e) for e in rows) / 1e3 / calls
+    return out, rows
