@@ -26,14 +26,22 @@ Phases, each printed on its own line; any failure exits non-zero:
    (``diff.params``): Cornell NEE at 64x64 with 4 and 6 bounces, the
    reference scene with every geometry group and the view matrix, a
    stratified spp 4 case, the 4-triangle tent, and the training path's own
-   512x512 shapes; then the unroll-budget error on the card;
+   512x512 shapes; then the unroll-budget error on the card; then the
+   backward's two kernels (the adjoint and the fold of its block rows):
+   ptxas' registers, spills and shared memory, a block's dynamic shared
+   memory and the blocks an SM holds on four scenes, and the fold kernel
+   against its plain version on a 512x512 step's rows, bit for bit, with
+   its time, its plain version's, torch.sum's and its bound;
 8. train: the training path, ``dist.render_dist.make_train_step`` at
    512x512 on the Cornell box (NEE, emission and BSDF parameters, through
    the kernels) for 10 steps, as ``cli train`` sets it up, with the launch
-   counts of both kernels;
+   counts of the three kernels; then the 10 steps again from the same
+   start, with the same losses, parameters and Adam state bit for bit, and
+   one step under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)``, what it warns of reported;
 9. train timing: fwd+bwd+Adam step times through the kernels and through
    the wavefront, in turns, the backward alone of each, and the backward
-   kernel's device time from torch.profiler;
+   kernels' device time from torch.profiler;
 10. traversal_vs_plain: the CUDA traversal kernel against its plain
     version (the skip-link walk) on the card, from the same 65,536 rays:
     the same hit mask and triangle index on every lane and t equal bit for
@@ -55,6 +63,10 @@ Phases, each printed on its own line; any failure exits non-zero:
     launches of one frame replayed one by one (work, device time, bound);
 13. mesh_train: 3 steps of ``make_train_step`` on the mesh scene at
     512x512 over emission and vertices (the BVH refit runs every step);
+    then train_bits: the wavefront's train steps run twice from one start
+    (the harness's ``fwd_bwd`` and ``fwd_bwd_mesh`` gradients, phase 13's
+    steps), held to the same bits, and what the detector of
+    nondeterministic torch ops warns of in each;
 14. mesh_cli: ``python -m tpu_path_tracer_torch render`` of an OBJ written
     by ``save_obj``, through a median BVH, on the card;
 15. pair_vs_plain: the two pair-sweep kernels against their plain versions
@@ -88,8 +100,8 @@ Phases, each printed on its own line; any failure exits non-zero:
     (``--dist-rank``, with torch's launcher variables), after the build:
     (i) one rank over NCCL, 3 sharded train steps at 512x512 on the Cornell
     box through both megakernels against the one-process
-    ``make_train_step``, losses and parameters bit for bit, with the
-    kernels' launch counts; (ii) two ranks over gloo sharing the card, each
+    ``make_train_step``, and that step against itself, losses, parameters
+    and gradients bit for bit, with the kernels' launch counts; (ii) two ranks over gloo sharing the card, each
     with its chunk on it: the reference scene's 512x512 frame through the
     forward megakernel and the 81,920-triangle mesh frame through the
     traversal kernel, each gathered against the one-process frame bit for
@@ -159,6 +171,9 @@ KERNEL_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_fwd.cu"
 KERNEL_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:765"
 BWD_SOURCE = "tpu_path_tracer_torch/csrc/megakernel_bwd.cu"
 BWD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:804"
+# The backward's fold of its block rows: the TPU kernel's sum over its
+# sequential grid into revisited output blocks.
+FOLD_REPLACES = "tpu_path_tracer/kernels/pallas/megakernel.py:852"
 TRAV_SOURCE = "tpu_path_tracer_torch/csrc/traversal.cu"
 TRAV_REPLACES = ("tpu_path_tracer/kernels/pallas/traversal.py:752, "
                  "tpu_path_tracer/kernels/pallas/traversal.py:865")
@@ -200,8 +215,8 @@ GOLDEN_MIN_SHARE = 0.95
 GOLDEN_MEAN_RTOL = 0.015
 # Phase 7: tests/test_pallas.py:160-167, the JAX package's kernel gradient
 # tolerance: every gradient within 2e-3 of its group's largest.  The
-# backward sums table gradients with atomics, in an order that changes
-# from run to run, and the wavefront's autograd sums in another order.
+# backward sums table gradients in a fixed order of its own (lanes, warps,
+# blocks), and the wavefront's autograd sums in another order.
 GRAD_RTOL = 2e-3
 GRAD_ATOL = 1e-6      # floor of a group's scale (test_pallas.py:160)
 GRAD_LOSS_RTOL = 1e-5
@@ -351,8 +366,9 @@ def build_phase():
                             if "Used" in ln or "spill" in ln
                             or "entry function" in ln])
     out = {name: _build.ptxas_report(text, f"{name}_kernel")
-           for name in ("megakernel_fwd", "megakernel_bwd", "bvh_stack_walk",
-                        "bvh_pack", "pairbin_sweep", "pair_sweep")}
+           for name in ("megakernel_fwd", "megakernel_bwd",
+                        "megakernel_bwd_fold", "bvh_stack_walk", "bvh_pack",
+                        "pairbin_sweep", "pair_sweep")}
     # The emission's kernels; the two emitting ones are templates with a
     # counting (false) and a scattering (true) instance.
     for kernel in {k for ks in EMIT_WRAPPER_KERNELS.values() for k in ks}:
@@ -744,6 +760,84 @@ def grad_phase(torch, pt, device):
     return worst_abs, worst_rel
 
 
+# Phase 7's scenes for the backward's occupancy: (spheres, quads,
+# triangles); the last two hold the most triangles the megakernel takes.
+BWD_SCENES = {"cornell_box": (2, 6, 0), "reference_scene": (19, 8, 12),
+              "cornell_box_64_tris": (2, 6, 64),
+              "reference_scene_64_tris": (19, 8, 64)}
+
+
+def bwd_fold_phase(torch, pt, device, smi, ptxas, calls=200):
+    """Phase 7 (end): the backward's two kernels.  What ptxas reported for
+    each; a block's dynamic shared memory and the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for BWD_SCENES; then
+    the fold kernel against its plain version on the block rows of a
+    512x512 Cornell step, bit for bit, with its device time, the plain
+    version's, torch.sum's over the same rows and its bound (bytes: the
+    rows read once, the sum written once); times per call by CUDA events
+    and device times by torch.profiler.  Returns the phase's numbers."""
+    import ctypes
+    import types
+
+    import numpy as np
+    from tpu_path_tracer_torch.core import rng
+    from tpu_path_tracer_torch.integrator.render import pixel_grid
+    from tpu_path_tracer_torch.kernels import _build
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    occupancy = _build.load().tpt_megakernel_bwd_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int] * 3
+    occupancy.restype = ctypes.c_int
+    blocks = {}
+    for name, counts in BWD_SCENES.items():
+        families = [types.SimpleNamespace(count=c) for c in counts]
+        shape = types.SimpleNamespace(spheres=families[0], quads=families[1],
+                                      triangles=families[2])
+        blocks[name] = {"counts": counts,
+                        "smem_bytes": mk.bwd_smem_bytes(shape),
+                        "blocks_per_sm": occupancy(*counts)}
+    phase("grad_vs_plain", case="backward_kernels", card=smi,
+          kernels={k: ptxas[k] for k in ("megakernel_bwd",
+                                         "megakernel_bwd_fold")},
+          blocks=blocks)
+    check(all(b["blocks_per_sm"] > 0 for b in blocks.values()),
+          f"a backward block does not fit an SM: {blocks}")
+
+    # The rows of a 512x512 Cornell step at frame 1, from a seeded
+    # cotangent of the gradients' scale.
+    cfg = pt.RenderConfig(**TRAIN_KW)
+    scene, meta, _ = pt.builtin.cornell_box(device=device)
+    view = torch.as_tensor(pt.Camera(eye=[0, 0, 3.2], center=[0, 0, 0])
+                           .view_matrix, device=device, dtype=torch.float32)
+    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    args = mk._prepare(rng.seed(pix, 1), px, py,
+                       mk.pack_tables(scene) + (view,), scene)
+    g = np.random.default_rng(5).normal(size=(px.shape[0], 3)) * 1e-6
+    gout = torch.as_tensor(g, dtype=torch.float32, device=device)
+    rows = mk._launch_bwd_rows(*args, gout, scene, meta, cfg)
+    got, plain = mk.fold_rows(rows), mk.fold_rows_plain(rows)
+    exact = rows.double().sum(0)
+    scale = float(exact.abs().max())
+    fns = {"": lambda: mk.fold_rows(rows),
+           "plain_": lambda: mk.fold_rows_plain(rows),
+           "library_": lambda: torch.sum(rows, 0)}
+    times = {f"{k}ms": time_events(torch, fn, calls) for k, fn in fns.items()}
+    times.update({f"{k}device_ms": profile_device_ms(fn, 20, {})[0]["all"]
+                  for k, fn in fns.items()})
+    nbytes = 4 * (rows.numel() + rows.shape[1])
+    bound_ms, bound_by = bound(rows.numel(), nbytes)
+    out = {"rows": list(rows.shape), "bit_equal": bool(torch.equal(got,
+                                                                    plain)),
+           "max_abs_err": float((got - plain).abs().max()),
+           "max_abs_err_vs_float64_over_max":
+               float((got.double() - exact).abs().max()) / max(scale, 1e-30),
+           **times, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": rows.numel()}
+    phase("grad_vs_plain", case="fold_vs_plain", card=smi, **out)
+    check(out["bit_equal"], "the fold kernel differs from its plain version")
+    return out
+
+
 def train_setup(torch, pt, device, use_megakernel):
     """``cli train``'s setup at the training path's size: the target at
     frame 1 from the true scene, emission and BSDF parameters x 0.5."""
@@ -762,36 +856,91 @@ def train_setup(torch, pt, device, use_megakernel):
     optimizer = torch.optim.Adam(params.values(), lr=5e-2)
     step = render_dist.make_train_step(None, scene, meta, cfg, apply_params,
                                        optimizer)
-    return step, params, target, view
+    return step, params, target, view, optimizer
 
 
-def train_phase(torch, pt, device, steps=10):
-    """Phase 8, the training path: 10 steps through the kernels; the
-    launch counts are read around the steps alone."""
-    import numpy as np
+def train_run(torch, pt, device, steps):
+    """``steps`` train steps of :func:`train_setup` through the kernels,
+    the launch counts set to 0 just before them; returns the losses, the
+    parameters and the Adam state after them, the seconds the steps took
+    and the kernels' launches in them."""
     from tpu_path_tracer_torch.kernels import megakernel as mk
 
-    step, params, target, view = train_setup(torch, pt, device, True)
+    step, params, target, view, optimizer = train_setup(torch, pt, device,
+                                                        True)
     torch.cuda.synchronize()
-    mk.LAUNCHES = 0
-    mk.BWD_LAUNCHES = 0
+    mk.LAUNCHES = mk.BWD_LAUNCHES = mk.FOLD_LAUNCHES = 0
     t0 = time.perf_counter()
-    losses = [float(step(params, target, 1, view)) for _ in range(steps)]
+    losses = [step(params, target, 1, view) for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"megakernel_fwd": mk.LAUNCHES,
-                "megakernel_bwd": mk.BWD_LAUNCHES}
+                "megakernel_bwd": mk.BWD_LAUNCHES,
+                "megakernel_bwd_fold": mk.FOLD_LAUNCHES}
+    state = {f"{k}.{name}": v for k, p in params.items()
+             for name, v in optimizer.state[p].items()}
+    return (torch.stack(losses), {k: p.detach() for k, p in params.items()},
+            state, seconds, launches)
+
+
+def nondeterministic_ops(torch, fn):
+    """The detector: runs ``fn`` once under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (set here
+    and restored after) and returns what it warned of, {message: where the
+    warning was raised}."""
+    import warnings
+
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    return {str(w.message)[:200]: f"{os.path.relpath(w.filename, REPO)}:"
+            f"{w.lineno}" for w in caught
+            if "determinis" in str(w.message)}
+
+
+def train_phase(torch, pt, device, steps=10):
+    """Phase 8, the training path: 10 steps through the kernels, the
+    launch counts read around the steps alone; then the same 10 steps again
+    from the same start, which must give the same losses, parameters and
+    Adam state bit for bit, and one step under the detector of
+    nondeterministic torch ops."""
+    import numpy as np
+
+    losses, params, state, seconds, launches = train_run(torch, pt, device,
+                                                         steps)
+    losses_r, params_r, state_r, _, _ = train_run(torch, pt, device, steps)
+    bits = {"losses_bit_equal": bool(torch.equal(losses, losses_r)),
+            "params_bit_equal": all(torch.equal(v, params_r[k])
+                                    for k, v in params.items()),
+            "adam_state_bit_equal": state.keys() == state_r.keys() and all(
+                torch.equal(v, state_r[k]) for k, v in state.items()),
+            "max_param_abs_diff": max(float((v - params_r[k]).abs().max())
+                                      for k, v in params.items())}
+    step, p0, target, view, _ = train_setup(torch, pt, device, True)
+    detector = nondeterministic_ops(torch, lambda: step(p0, target, 1, view))
+    losses = losses.tolist()
     phase("train", scene="cornell_box",
           size=f"{TRAIN_KW['width']}x{TRAIN_KW['height']}",
           max_bounces=TRAIN_KW["max_bounces"], groups=list(TRAIN_GROUPS),
           steps=steps, losses=losses, launches=launches,
-          seconds=round(seconds, 4))
+          seconds=round(seconds, 4), second_run=bits, detector=detector)
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "the training loss did not fall")
-    check(launches == {"megakernel_fwd": steps, "megakernel_bwd": steps},
+    check(launches == {"megakernel_fwd": steps, "megakernel_bwd": steps,
+                       "megakernel_bwd_fold": steps},
           f"launches {launches} for {steps} steps")
     for k, v in params.items():
         check(bool(torch.isfinite(v).all()), f"non-finite parameter {k}")
+    check(bits["losses_bit_equal"] and bits["params_bit_equal"]
+          and bits["adam_state_bit_equal"],
+          f"two runs of the train steps from one start differ: {bits}")
     return launches
 
 
@@ -801,8 +950,8 @@ def time_train_steps(torch, pt, device, use_megakernel, warmup=2, steps=8):
     from tpu_path_tracer_torch.diff.params import apply_params
     from tpu_path_tracer_torch.dist import render_dist
 
-    step, params, target, view = train_setup(torch, pt, device,
-                                             use_megakernel)
+    step, params, target, view, _ = train_setup(torch, pt, device,
+                                                use_megakernel)
     scene, meta, _ = pt.builtin.cornell_box(device=device)
     cfg = pt.RenderConfig(**TRAIN_KW, use_megakernel=use_megakernel)
     loss_fn = render_dist.make_sharded_loss_fn(None, scene, meta, cfg,
@@ -849,7 +998,7 @@ def train_timing_phase(torch, pt, device, smi):
               step_ms_max=max(s), bwd_ms=out[name]["bwd_ms"],
               bwd_ms_min=min(b), bwd_ms_max=max(b), steps=len(s), card=smi)
 
-    step, params, target, view = train_setup(torch, pt, device, True)
+    step, params, target, view, _ = train_setup(torch, pt, device, True)
     for _ in range(2):
         step(params, target, 1, view)
     torch.cuda.synchronize()
@@ -861,14 +1010,12 @@ def train_timing_phase(torch, pt, device, smi):
         torch.cuda.synchronize()
 
     rows = kernel_rows(prof)
-    bwd = [e for e in rows if "megakernel_bwd" in e.key]
-    fwd = [e for e in rows if "megakernel_fwd" in e.key]
     busy_ms = sum(device_us(e) for e in rows) / 1e3 / steps
-    kernel_ms = {
-        "megakernel_bwd": (sum(device_us(e) for e in bwd) / 1e3 / steps
-                           if bwd else "not measured"),
-        "megakernel_fwd": (sum(device_us(e) for e in fwd) / 1e3 / steps
-                           if fwd else "not measured")}
+    kernel_ms = {}
+    for name in ("megakernel_fwd", "megakernel_bwd", "megakernel_bwd_fold"):
+        mine = [e for e in rows if f"{name}_kernel" in e.key]
+        kernel_ms[name] = (sum(device_us(e) for e in mine) / 1e3 / steps
+                           if mine else "not measured")
     phase("train_profile", steps=steps,
           device_ms_per_step=busy_ms if rows else "not measured",
           step_wall_ms=out["kernel"]["step_ms"],
@@ -1251,14 +1398,11 @@ def mesh_launches(torch, pt, scene, meta, cfg, view, smi):
     return statistics.mean(bounds)
 
 
-def mesh_train_phase(torch, pt, device, steps=3):
-    """Phase 13: the training path on the mesh scene: emission and vertex
-    parameters, the BVH refit inside apply_params every step, the
-    traversal kernel's launches counted around the steps alone."""
-    import numpy as np
+def mesh_train_setup(torch, pt, device):
+    """Phase 13's set-up: the mesh scene's target at frame 1, cli train's
+    perturbation (geometry shifted, emission halved) and Adam."""
     from tpu_path_tracer_torch.diff.params import apply_params, extract_params
     from tpu_path_tracer_torch.dist import render_dist
-    from tpu_path_tracer_torch.kernels import traversal
 
     scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**MESH_KW)
@@ -1267,13 +1411,24 @@ def mesh_train_phase(torch, pt, device, steps=3):
     with torch.no_grad():
         target = frame(torch.zeros((render_dist.padded_pixels(cfg), 3),
                                    device=device), 1, True, view, scene)
-    # cli train's perturbation: geometry shifted, emission halved.
     params = {k: (v + 0.05 if k.startswith("tri_") else v * 0.5)
               .detach().clone().requires_grad_(True)
               for k, v in extract_params(scene, MESH_GROUPS).items()}
     optimizer = torch.optim.Adam(params.values(), lr=5e-3)
     step = render_dist.make_train_step(None, scene, meta, cfg, apply_params,
                                        optimizer)
+    return step, params, target, view, scene, cfg
+
+
+def mesh_train_phase(torch, pt, device, steps=3):
+    """Phase 13: the training path on the mesh scene: emission and vertex
+    parameters, the BVH refit inside apply_params every step, the
+    traversal kernel's launches counted around the steps alone."""
+    import numpy as np
+    from tpu_path_tracer_torch.kernels import traversal
+
+    step, params, target, view, scene, cfg = mesh_train_setup(torch, pt,
+                                                              device)
     torch.cuda.synchronize()
     traversal.LAUNCHES = traversal.PACK_LAUNCHES = 0
     losses, step_ms, grad_max = [], [], []
@@ -1302,6 +1457,69 @@ def mesh_train_phase(torch, pt, device, steps=3):
     check(traversal.PACK_LAUNCHES == launches,
           "the refit's tables were not packed for every launch")
     return statistics.median(step_ms)
+
+
+def grads_gap(torch, a, b):
+    """Two runs' gradients: equal bit for bit, and the largest difference
+    over its group's largest."""
+    gap = 0.0
+    for x, y in zip(a, b):
+        if x is not None:
+            scale = max(float(x.abs().max()), GRAD_ATOL)
+            gap = max(gap, float((x - y).abs().max()) / scale)
+    return {"grads_bit_equal": all(
+        (x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b)),
+        "max_diff_over_group_max": gap}
+
+
+def wavefront_bits_phase(torch, pt, device, smi, steps=3):
+    """Phase 13 (end): whether the wavefront's train steps give the same
+    bits twice from one start: the gradients of the harness's ``fwd_bwd``
+    (the Cornell box) and ``fwd_bwd_mesh`` (the mirror icosphere's emission
+    and vertices: the refit and the traversal kernel) losses at 512x512,
+    and phase 13's steps (losses and parameters), held to the bit; each
+    once more under the detector of nondeterministic torch ops."""
+    from tpu_path_tracer_torch.bench import EYE, fwd_bwd_loss
+
+    cfg = pt.RenderConfig(width=512, height=512, max_bounces=4,
+                          importance_sampling=True, use_megakernel=False)
+    cornell, cornell_meta, _ = pt.builtin.cornell_box(device=device)
+    cases = {"fwd_bwd": (cornell, cornell_meta, ("emission", "bsdf")),
+             "fwd_bwd_mesh": (*mesh_scene(MESH_SUBDIVISIONS[0], device),
+                              ("emission", "vertices"))}
+    out = {}
+    for name, (scene, meta, groups) in cases.items():
+        loss, params = fwd_bwd_loss(scene, meta, cfg, EYE, groups, device)
+
+        def grads():
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in params.items()}
+            return torch.autograd.grad(loss(leaves, 1), list(leaves.values()),
+                                       allow_unused=True)
+
+        out[name] = {**grads_gap(torch, grads(), grads()),
+                     "detector": nondeterministic_ops(torch, grads)}
+    runs = []
+    for _ in range(2):
+        step, params, target, view, _, _ = mesh_train_setup(torch, pt,
+                                                            device)
+        losses = torch.stack([step(params, target, 1, view)
+                              for _ in range(steps)])
+        runs.append((losses, [p.detach() for p in params.values()]))
+    step, params, target, view, _, _ = mesh_train_setup(torch, pt, device)
+    out["mesh_train"] = {
+        "steps": steps,
+        "losses_bit_equal": bool(torch.equal(runs[0][0], runs[1][0])),
+        "params_bit_equal": all(torch.equal(a, b) for a, b in
+                                zip(runs[0][1], runs[1][1])),
+        "detector": nondeterministic_ops(
+            torch, lambda: step(params, target, 1, view))}
+    for name, row in out.items():
+        phase("train_bits", case=name, size="512x512", card=smi, **row)
+    for name, row in out.items():
+        check(all(v for k, v in row.items() if k.endswith("bit_equal")),
+              f"{name}: two runs from one start differ: {row}")
+    return out
 
 
 def mesh_cli_phase(pt):
@@ -2169,8 +2387,8 @@ def user_layer_phase(torch, pt, device, frames=100, max_fps=200.0, k=3):
 # card over gloo (NCCL refuses two ranks on one GPU).
 DIST_STEPS = 3
 DIST_TIMEOUT = 300
+# Two ranks' gradients are summed in another order than one process's.
 DIST_GRAD_RTOL = 1e-5
-DIST_PARAM_ATOL = 1e-5    # tests/test_torch_dist.py's train-step bound
 DIST_SCALING = dict(iters=4, repeats=3)
 
 
@@ -2268,9 +2486,9 @@ def sharding_identity(torch, pt, device, mesh):
 
 def dist_world1(torch, pt, device, mesh):
     """(i): the sharded train step on a one-rank NCCL mesh against the
-    one-process step, and the one-process step against itself (the
-    backward kernel sums gradients with atomics in no fixed order); what
-    the sharding adds at one rank, bit for bit."""
+    one-process step, and the one-process step against itself, bit for
+    bit (every sum of the backward has a fixed order); what the sharding
+    adds at one rank, bit for bit."""
     out, runs = {}, {}
     for name, m in (("one_process", None), ("sharded", mesh),
                     ("one_process_again", None)):
@@ -2480,10 +2698,11 @@ def dist_phase(smi):
           f"world 1 launches {one['sharded']['launches']}")
     check(all(one["identity"].values()), "world 1: the sharding changed "
           f"bits: {one['identity']}")
-    gap = one["sharded_vs_one_process"]
-    check(gap["max_grad_err_over_group_max"] <= DIST_GRAD_RTOL
-          and gap["max_param_abs_diff"] <= DIST_PARAM_ATOL,
-          f"world 1: the sharded train step is {gap} from one process")
+    for key in ("sharded_vs_one_process", "one_process_vs_itself"):
+        gap = one[key]
+        check(gap["losses_bit_equal"] and gap["params_bit_equal"]
+              and gap["max_grad_err_over_group_max"] == 0.0,
+              f"world 1, {key}: the train steps differ: {gap}")
     two = run_ranks(2, "world2", out_dir)
     for key in ("reference_frame", "mesh_frame", "grads"):
         phase("dist", case=f"world2_{key}", gpu=smi,
@@ -2752,12 +2971,14 @@ def run():
     times = timing_phase(torch, pt, device, smi)
     fwd_device_ms = profile_phase(torch, pt, device, frame_ms)
     grad_abs, grad_rel = grad_phase(torch, pt, device)
+    fold = bwd_fold_phase(torch, pt, device, smi, ptxas)
     train_launches = train_phase(torch, pt, device)
     train_times, kernel_ms = train_timing_phase(torch, pt, device, smi)
     trav = traversal_phase(torch, pt, device, smi)
     mesh_launches, pack_launches = mesh_main_path_phase(torch, pt, device)
     mesh_times = mesh_timing_phase(torch, pt, device, smi)
     mesh_train_phase(torch, pt, device)
+    wavefront_bits_phase(torch, pt, device, smi)
     mesh_cli_phase(pt)
     pair_phase(torch, pt, device, smi)
     pair_kernels = pair_main_path_phase(torch, pt, device, smi)
@@ -2797,6 +3018,14 @@ def run():
          "device_ms": kernel_ms["megakernel_bwd"],
          "bound_ms": bwd_bound["bound_ms"], "bound_by": bwd_bound["bound_by"],
          "library_ms": None, **ptxas["megakernel_bwd"]},
+        {"name": "megakernel_bwd_fold", "route": "cuda",
+         "source": BWD_SOURCE, "replaces": FOLD_REPLACES,
+         "launches": train_launches["megakernel_bwd_fold"],
+         "max_abs_err": fold["max_abs_err"], "ms": fold["ms"],
+         "device_ms": kernel_ms["megakernel_bwd_fold"],
+         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
+         "bound_by": fold["bound_by"], "library_ms": fold["library_ms"],
+         **ptxas["megakernel_bwd_fold"]},
         {"name": "bvh_closest_hit", "route": "cuda", "source": TRAV_SOURCE,
          "replaces": TRAV_REPLACES, "launches": mesh_launches,
          "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],

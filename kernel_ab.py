@@ -22,7 +22,12 @@ by this checkout's ``kernels.megakernel``:
 * forward: ``reference_scene()`` at 512x512, 4 bounces, 1 spp, NEE off (the
   render main path's frame);
 * backward: ``cornell_box()`` at 512x512, 4 bounces, NEE on (the training
-  step's shapes), with a seeded cotangent.
+  step's shapes), and ``reference_scene()`` at 512x512, 4 bounces, NEE off
+  (the harness's ``fwd_bwd_reference_scene``), and the reference scene
+  with 52 triangles more (64, the most the megakernel takes: the
+  backward's largest shared-memory block), each with a seeded cotangent.  A tree whose backward folds its block rows with a second
+  kernel (``tpt_megakernel_bwd_fold``) has that kernel timed beside it;
+  an earlier tree's backward adds to a zeroed buffer with atomics.
 
 ``--kernel traversal`` times each tree's BVH traversal kernel through that
 tree's own wrapper (its ``kernels/traversal.py`` ``_launch``, imported from
@@ -51,12 +56,14 @@ each turn profiles ``--reps`` launches after two warm-up launches with
 torch.profiler (CUDA events when the profiler sees no device time), and
 the script prints per tree and kernel the median, minimum and maximum
 device ms per launch, with the registers, static shared memory, spills
-and stack frame ptxas reported.  ``--bits`` with the megakernels saves each
+and stack frame ptxas reported (for the backward also the fold kernel's,
+where the tree has one).  ``--bits`` with the megakernels saves each
 tree's forward radiance on the 512x512 frame and on chip_smoke.py phase
 3's four 64x64 cases (frame 3 PCG states) as ``.npy`` files under
 ``--out`` and counts, for every tree, the pixels that differ in any bit
 from the first tree's; it also reports how far each backward's table
-gradients lie from the first tree's.  ``--bits`` with the traversal counts,
+gradients lie from the first tree's, and whether two launches of each
+tree's backward give the same bits.  ``--bits`` with the traversal counts,
 for every tree and input, the lanes whose triangle index or any bit of t
 differs from the first tree's, and with the pairs the rows.  The last line is one JSON object with
 everything.  Imports nothing of JAX.
@@ -77,6 +84,7 @@ from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {"fwd": "megakernel_fwd_kernel", "bwd": "megakernel_bwd_kernel"}
+FOLD_KERNEL = "megakernel_bwd_fold_kernel"
 # The traversal kernel's name in each tree: the stack walk, or the
 # skip-link walk of the trees before it.
 TRAVERSAL_KERNELS = ("bvh_stack_walk_kernel", "bvh_closest_hit_kernel")
@@ -102,6 +110,8 @@ def build_all(trees, build_root):
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text()
         report = {k: _build.ptxas_report(log, v) for k, v in KERNELS.items()}
+        if FOLD_KERNEL in log:
+            report["fold"] = _build.ptxas_report(log, FOLD_KERNEL)
         report["traversal"] = next(
             _build.ptxas_report(log, k) for k in TRAVERSAL_KERNELS
             if f"{k}" in log)
@@ -110,6 +120,24 @@ def build_all(trees, build_root):
                 report[route] = _build.ptxas_report(log, kernel)
         libs[name] = (ctypes.CDLL(str(path)), report)
     return libs
+
+
+def reference_64_tris(device):
+    """The reference scene with two icospheres and a cube added, 64
+    triangles in all."""
+    import tpu_path_tracer_torch as pt
+    from tpu_path_tracer_torch.scene.transform import Transform
+
+    _, _, b = pt.builtin.reference_scene(device=device)
+    white = b.material("white")
+    for mesh, at in ((pt.procedural.icosphere(0, 0.2), (-0.6, -0.7, 0.5)),
+                     (pt.procedural.icosphere(0, 0.2), (0.6, -0.7, 0.5)),
+                     (pt.procedural.cube(), (0.0, -0.7, 0.6))):
+        t = Transform()
+        t.update(Transform.translate(*at))
+        b.add_mesh(mesh, white, t)
+    scene, meta = b.build(device=device)
+    return scene, meta, b
 
 
 def inputs(torch, pt, device):
@@ -136,6 +164,12 @@ def inputs(torch, pt, device):
     bwd = args(B.cornell_box, [0, 0, 3.2],
                pt.RenderConfig(width=512, height=512, max_bounces=4,
                                importance_sampling=True), 1)
+    bwd_reference = args(B.reference_scene, [0.5, 0.0, 2.5],
+                         pt.RenderConfig(width=512, height=512,
+                                         max_bounces=4), 1)
+    bwd_64_tris = args(reference_64_tris, [0.5, 0.0, 2.5],
+                       pt.RenderConfig(width=512, height=512,
+                                       max_bounces=4), 1)
     n = bwd[3].shape[0]
     g = np.random.default_rng(5).normal(size=(n, 3)) * 1e-6
     gout = torch.as_tensor(g, dtype=torch.float32, device=device)
@@ -154,30 +188,54 @@ def inputs(torch, pt, device):
     small["reference_full_512_frame3"] = args(
         B.reference_scene, [0.5, 0.0, 2.5],
         pt.RenderConfig(width=512, height=512, max_bounces=4), 3)
-    return fwd, bwd, gout, small
+    return fwd, {"cornell": bwd, "reference": bwd_reference,
+                 "reference_64_tris": bwd_64_tris}, gout, small
+
+
+def bind(lib):
+    """A tree's megakernel entry points: forward, backward and the fold of
+    the backward's block rows (None in the trees before it).  Every tree's
+    backward takes the same arguments; the later ones take the block rows
+    where the earlier ones took the zeroed gradient buffer."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scalars = [i] * 7 + [f] * 13
+    fwd, bwd = lib.tpt_megakernel_fwd, lib.tpt_megakernel_bwd
+    fold = getattr(lib, "tpt_megakernel_bwd_fold", None)
+    fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p]
+    bwd.argtypes = [p, i, i, i, p, p, p, p, p, p] + scalars + [p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    if fold is not None:
+        fold.argtypes = [p, i, i, p, p]
+        fold.restype = ctypes.c_int
+    return fwd, bwd, fold
 
 
 def launch(torch, lib, kind, a, gout=None):
     """One launch of ``kind`` from library ``lib`` on packed arguments
     ``a``; returns the radiance or the table gradients."""
-    from tpu_path_tracer_torch.kernels import megakernel as mk
-
     flat, counts, st, px32, py32, scalars, cfg = a
     n = px32.shape[0]
     stream = torch.cuda.current_stream().cuda_stream
-    fwd, bwd = mk._bind(lib)
+    fwd, bwd, fold = bind(lib)
     if kind == "fwd":
         out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
         err = fwd(flat.data_ptr(), *counts, st.data_ptr(), px32.data_ptr(),
                   py32.data_ptr(), out.data_ptr(), *scalars, stream)
     else:
-        out = torch.zeros_like(flat)
         # The largest record scratch any tree has used (14 words a bounce).
         rec = torch.empty((cfg.max_bounces * 14 * n,), dtype=torch.float32,
                           device=px32.device)
+        # The block rows (128 threads a block), or the gradient buffer.
+        out = (torch.zeros_like(flat) if fold is None else torch.empty(
+            (-(-n // 128), flat.numel()), dtype=torch.float32,
+            device=px32.device))
         err = bwd(flat.data_ptr(), *counts, st.data_ptr(), px32.data_ptr(),
                   py32.data_ptr(), gout.data_ptr(), rec.data_ptr(),
                   out.data_ptr(), *scalars, stream)
+        if not err and fold is not None:
+            rows, out = out, torch.empty_like(flat)
+            err = fold(rows.data_ptr(), rows.shape[0], rows.shape[1],
+                       out.data_ptr(), stream)
     if err:
         raise SystemExit(f"{kind} launch failed: CUDA error {err}")
     return out
@@ -520,25 +578,39 @@ def main():
         print(json.dumps({"card": smi, "kernels": results, "bits": bits}))
         return
     fwd_args, bwd_args, gout, small = inputs(torch, pt, device)
-    kernel_args = {"fwd": (fwd_args, None), "bwd": (bwd_args, gout)}
+    cases = [("fwd", "reference", fwd_args)] + [
+        ("bwd", scene, a) for scene, a in bwd_args.items()]
     results = {}
-    for kind in ("fwd", "bwd"):
+    for kind, scene, a in cases:
+        g = gout if kind == "bwd" else None
         samples = {v: [] for v in names}
+        fold = {v: [] for v in names if "fold" in libs[v][1]}
         how = set()
         for v in names + names[::-1]:
-            a, g = kernel_args[kind]
-            t, method = device_ms(torch, lambda: launch(
-                torch, libs[v][0], kind, a, g), KERNELS[kind], args.reps)
+            def call():
+                return launch(torch, libs[v][0], kind, a, g)
+
+            t, method = device_ms(torch, call, KERNELS[kind], args.reps)
             samples[v] += t
             how.add(method)
+            if kind == "bwd" and v in fold:
+                t, method = device_ms(torch, call, FOLD_KERNEL, args.reps)
+                fold[v] += t
+                how.add(method)
         for v in names:
             t = samples[v]
-            row = {"tree": v, "kernel": KERNELS[kind],
+            row = {"tree": v, "kernel": KERNELS[kind], "scene": scene,
                    "median_ms": statistics.median(t), "min_ms": min(t),
                    "max_ms": max(t), "launches": len(t),
                    "timed_by": sorted(how), **libs[v][1][kind],
                    "card": smi}
-            results.setdefault(kind, []).append(row)
+            if kind == "bwd" and v in fold:
+                f = fold[v]
+                row["fold"] = {"kernel": FOLD_KERNEL,
+                               "median_ms": statistics.median(f),
+                               "min_ms": min(f), "max_ms": max(f),
+                               **libs[v][1]["fold"]}
+            results.setdefault(f"{kind}_{scene}", []).append(row)
             print(json.dumps(row), flush=True)
 
     bits = {}
@@ -555,14 +627,19 @@ def main():
                           for v, o in outs.items() if v != first}
             print(json.dumps({"bits": case, "pixels": len(outs[first]),
                               "differing_pixels": bits[case]}), flush=True)
-        grads = {v: launch(torch, libs[v][0], "bwd", bwd_args, gout)
-                 .cpu().numpy() for v in names}
-        scale = float(np.abs(grads[first]).max())
-        bits["bwd_max_diff_over_max"] = {
-            v: float(np.abs(g - grads[first]).max()) / scale
-            for v, g in grads.items() if v != first}
-        print(json.dumps({"bwd_max_diff_over_max":
-                          bits["bwd_max_diff_over_max"]}), flush=True)
+        for scene, a in bwd_args.items():
+            grads = {v: [launch(torch, libs[v][0], "bwd", a, gout).cpu()
+                         .numpy() for _ in range(2)] for v in names}
+            scale = float(np.abs(grads[first][0]).max())
+            bits[f"bwd_{scene}"] = {
+                "max_diff_over_max": {
+                    v: float(np.abs(g[0] - grads[first][0]).max()) / scale
+                    for v, g in grads.items() if v != first},
+                "repeat_bit_equal": {
+                    v: bool((g[0].view(np.uint32) == g[1].view(np.uint32))
+                            .all()) for v, g in grads.items()}}
+            print(json.dumps({f"bwd_{scene}": bits[f"bwd_{scene}"]}),
+                  flush=True)
     print(json.dumps({"card": smi, "kernels": results, "bits": bits}))
 
 

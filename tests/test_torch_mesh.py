@@ -150,6 +150,21 @@ def test_port_median_leaf_is_single_primitive():
     assert len(arrs.mins) == 127  # 2n-1 nodes
 
 
+def test_native_library_name_depends_on_host_cpu():
+    """The native library is built with -march=native, so its name carries
+    the host's CPU: two hosts' target options give two libraries, and a
+    library built on one host is never loaded on another."""
+    a = tnative.library_path("-march= \t\tskylake-avx512\n")
+    b = tnative.library_path("-march= \t\tznver3\n")
+    assert a != b and a.parent == b.parent == tnative.BUILD_DIR
+    assert a.name.startswith("libtptbvh_") and a.suffix == ".so"
+    gxx = shutil.which("g++")
+    if gxx is not None:
+        key = tnative.host_key(gxx)
+        assert "-march=" in key
+        assert tnative.library_path(key) not in (a, b)
+
+
 def test_port_native_builders_match_numpy():
     """tests/test_renderer.py::test_native_builders_match_numpy on the
     port's native library: the invariants for every method, and the median

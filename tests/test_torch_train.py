@@ -437,6 +437,111 @@ extern "C" void host_bwd(
                     (float)py[i], g, rec, i);
   }
 }
+// The kernel's grid on the host, block after block: each block's 128
+// threads run their pixels one after another, and each flush records the
+// thread's row slot, key and width (and zeroes what flush_rows zeroes).
+// Then every flush is replayed warp by warp through the kernel's own
+// flush_rows with the 32-lane stand-in, the block's row is written by
+// store_block and the rows are folded by fold_part / fold_parts, as the
+// fold kernel does.  reverse runs blocks, threads, warps and lanes in
+// reverse order.
+struct RecordFlush {
+  const Sink* sink;
+  std::vector<float>* slots;
+  std::vector<int>* keys;
+  std::vector<int>* cols;
+  void operator()(int key, int width) const {
+    for (int c = 0; c < TRI_COLS; ++c) {
+      slots->push_back(sink->row[c * sink->stride]);
+    }
+    keys->push_back(key);
+    cols->push_back(width);
+    if (key < 0) return;
+    for (int c = 0; c < width; ++c) sink->row[c * sink->stride] = 0.0f;
+  }
+};
+
+extern "C" void host_bwd_grid(
+    const float* tables, int n_sph, int n_quad, int n_tri, const int* state,
+    const int* px, const int* py, const float* gout, float* rec, float* rows,
+    float* grad, int n, int spp, int max_bounces, int grid_n, int use_nee,
+    int has_volumes, int rr_start_bounce, float t_min, float t_max,
+    float inf, float p_light, float bg_r, float bg_g, float bg_b,
+    float aspect, float fov_factor, float w, float h, float sub_scale,
+    float inv_spp, int reverse) {
+  const Params p = {n_sph, n_quad, n_tri, n, spp, max_bounces, grid_n,
+                    use_nee, has_volumes, rr_start_bounce, t_min, t_max, inf,
+                    p_light, bg_r, bg_g, bg_b, aspect, fov_factor, w, h,
+                    sub_scale, inv_spp};
+  const int nt = BWD_THREADS, nf = table_floats(p);
+  const int blocks = (n + nt - 1) / nt;
+  auto order = [reverse](int k, int count) {
+    return reverse ? count - 1 - k : k;
+  };
+  std::vector<float> smem(bwd_smem_bytes(p) / sizeof(float));
+  for (int bk = 0; bk < blocks; ++bk) {
+    const int block = order(bk, blocks);
+    const BwdBlock b = bwd_block(smem.data(), p);
+    for (int t = 0; t < nt; ++t) init_block(b, p, tables, nt, t);
+    for (int k = 0; k < scene_invariants(p); ++k) {
+      prepare_scene(p, b.scene, k);
+    }
+    const Tables<const float> S = tables_at<const float>(b.scene, p);
+    std::vector<std::vector<float>> slots(nt);
+    std::vector<std::vector<int>> keys(nt), cols(nt);
+    for (int tk = 0; tk < nt; ++tk) {
+      const int t = order(tk, nt), i = block * nt + t;
+      const bool live = i < n;
+      const float g[3] = {live ? gout[3 * i] : 0.0f,
+                          live ? gout[3 * i + 1] : 0.0f,
+                          live ? gout[3 * i + 2] : 0.0f};
+      const Sink sink = thread_sink(b, nt, t);
+      const RecordFlush flush = {&sink, &slots[t], &keys[t], &cols[t]};
+      const Tables<float> G =
+          tables_at<float>(warp_table(b, p, t / WARP), p);
+      trace_pixel_bwd(p, S, G, sink, live, live ? (uint32_t)state[i] : 0u,
+                      live ? (float)px[i] : 0.0f, live ? (float)py[i] : 0.0f,
+                      g, rec, i, flush);
+    }
+    const int ss = nt + 1, flushes = (int)keys[0].size();
+    for (int e = 0; e < flushes; ++e) {
+      for (int wk = 0; wk < BWD_WARPS; ++wk) {
+        const int wp = order(wk, BWD_WARPS);
+        int key[WARP], width[WARP];
+        for (int l = 0; l < WARP; ++l) {
+          const int t = wp * WARP + l;
+          for (int c = 0; c < TRI_COLS; ++c) {
+            b.slots[c * ss + t] = slots[t][e * TRI_COLS + c];
+          }
+          key[l] = keys[t][e];
+          width[l] = cols[t][e];
+        }
+        const LaneWarp lanes = {key, width};
+        for (int lk = 0; lk < WARP; ++lk) {
+          flush_rows(lanes, order(lk, WARP), b.slots + wp * WARP, ss,
+                     warp_table(b, p, wp));
+        }
+      }
+    }
+    for (int t = 0; t < nt; ++t) store_block(b, p, nt, t, block, rows);
+  }
+  float parts[FOLD_PARTS];
+  for (int col = 0; col < nf; ++col) {
+    for (int j = 0; j < FOLD_PARTS; ++j) {
+      parts[j] = fold_part(rows, blocks, nf, col, j);
+    }
+    grad[col] = fold_parts(parts, 1);
+  }
+}
+extern "C" void host_fold(const float* rows, int blocks, int n, float* out) {
+  float parts[FOLD_PARTS];
+  for (int col = 0; col < n; ++col) {
+    for (int j = 0; j < FOLD_PARTS; ++j) {
+      parts[j] = fold_part(rows, blocks, n, col, j);
+    }
+    out[col] = fold_parts(parts, 1);
+  }
+}
 extern "C" long long host_bwd_smem(int n_sph, int n_quad, int n_tri) {
   Params p = {};
   p.n_sph = n_sph;
@@ -464,6 +569,11 @@ def host_adjoint(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_bwd.argtypes = [p, i, i, i] + [p] * 6 + [i] * 7 + [f] * 13
     lib.host_bwd.restype = None
+    lib.host_bwd_grid.argtypes = ([p, i, i, i] + [p] * 7 + [i] * 7 + [f] * 13
+                                  + [i])
+    lib.host_bwd_grid.restype = None
+    lib.host_fold.argtypes = [p, i, i, p]
+    lib.host_fold.restype = None
     lib.host_bwd_smem.argtypes = [i, i, i]
     lib.host_bwd_smem.restype = ctypes.c_longlong
     return lib
@@ -541,17 +651,116 @@ def test_backward_kernel_source_on_cpu(host_adjoint, name):
     assert max(np.abs(v[0]).max() for v in as_np.values()) > 0
 
 
+def _host_case(name):
+    """A ``HOST_CASES`` case at 16x16, as the backward's C entry point
+    takes it: ``(params, tables, args, reference)`` where ``args`` are the
+    packed buffers, the cotangent, the scalar arguments and the config, and
+    ``reference()`` the plain version's parameter gradients."""
+    scene_fn, eye, kw, groups = HOST_CASES[name]
+    scene, meta, _ = scene_fn()
+    cfg = pt.RenderConfig(width=16, height=16, **kw)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in tparams.extract_params(scene, groups).items()}
+    params["view_matrix"] = torch.as_tensor(
+        pt.Camera(eye=eye).view_matrix).requires_grad_(True)
+    s = tparams.apply_params(scene, params)
+    pix, px, py = pixel_grid(16, 16, "cpu")
+    state = trng.seed(pix, SEED)
+    rad = mk.path_trace_pixels_reference(state, params["view_matrix"], px,
+                                         py, s, meta, cfg).detach()
+    gout = (2.0 * (rad - 0.3) / rad.numel()).contiguous()
+    tables = mk.pack_tables(s) + (params["view_matrix"],)
+    flat, counts, st32, px32, py32 = mk._prepare(state, px, py, tables, s)
+    args = (flat, counts, st32, px32, py32, gout,
+            mk._scalar_args(s, meta, cfg, px.shape[0]), cfg)
+    return params, tables, args, lambda: mk.vjp_reference(
+        state, params["view_matrix"], px, py, s, meta, cfg, gout,
+        list(params.values()))
+
+
+def _host_grid(lib, args, reverse):
+    """The backward kernel's grid emulated on the host (``host_bwd_grid``);
+    returns the blocks' rows and their fold, the tables' gradients."""
+    flat, counts, st32, px32, py32, gout, scalars, cfg = args
+    n = px32.shape[0]
+    rows = torch.full((-(-n // mk.BWD_THREADS), flat.numel()), float("nan"))
+    grad = torch.full_like(flat, float("nan"))
+    rec = torch.empty(cfg.max_bounces * mk.REC_FIELDS * n)
+    lib.host_bwd_grid(flat.data_ptr(), *counts, st32.data_ptr(),
+                      px32.data_ptr(), py32.data_ptr(), gout.data_ptr(),
+                      rec.data_ptr(), rows.data_ptr(), grad.data_ptr(),
+                      *scalars, int(reverse))
+    return rows, grad
+
+
+@pytest.mark.parametrize("name", sorted(HOST_CASES))
+def test_backward_block_fold_on_cpu(host_adjoint, name):
+    """The kernel's blocks emulated on the CPU, with its own warp fold
+    (``flush_rows`` over a 32-lane stand-in for the warp primitives), block
+    fold and row fold: the gradients against autograd of the wavefront at
+    the card's tolerance, and the row fold equal to ``fold_rows``' plain
+    version bit for bit."""
+    params, tables, args, reference = _host_case(name)
+    rows, grad = _host_grid(host_adjoint, args, reverse=False)
+    assert torch.equal(mk.fold_rows(rows), grad)
+    table_grads = torch.split(grad, [t.numel() for t in tables])
+    pairs = [(t, g.reshape(t.shape)) for t, g in zip(tables, table_grads)
+             if t.requires_grad]
+    got = torch.autograd.grad([t for t, _ in pairs], list(params.values()),
+                              [g for _, g in pairs], allow_unused=True)
+    ref = reference()
+    keys = list(params)
+    zero = {k: np.zeros(tuple(params[k].shape), np.float32) for k in keys}
+    want = {k: zero[k] if r is None else r.numpy()
+            for k, r in zip(keys, ref)}
+    have = {k: zero[k] if g is None else g.numpy()
+            for k, g in zip(keys, got)}
+    _assert_grads_close(want, have, keys)
+    assert max(np.abs(v).max() for v in want.values()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(HOST_CASES))
+def test_backward_block_fold_is_order_free(host_adjoint, name):
+    """Blocks, threads, warps and lanes run in order and in reverse give
+    the same bits: every sum of the kernel's folds has one order, whatever
+    the order in which warps and blocks arrive."""
+    _, _, args, _ = _host_case(name)
+    rows, grad = _host_grid(host_adjoint, args, reverse=False)
+    rows_r, grad_r = _host_grid(host_adjoint, args, reverse=True)
+    assert torch.equal(rows, rows_r)
+    assert torch.equal(grad, grad_r)
+    assert bool(grad.abs().max() > 0)
+
+
+@pytest.mark.parametrize("blocks", [1, 33, 2048])
+def test_fold_rows_plain_equals_kernel_fold(host_adjoint, blocks):
+    """The fold kernel's tree (``fold_part``, ``fold_parts`` built for the
+    CPU) and ``fold_rows``' plain version give the same bits, from one row
+    to the 2,048 of a 512x512 step; the CPU route of ``fold_rows`` is the
+    plain version, within float32 rounding of a float64 sum."""
+    rng = np.random.default_rng(blocks)
+    rows_np = rng.normal(size=(blocks, 233)).astype(np.float32)
+    rows_np[rng.random(rows_np.shape) < 0.5] = 0.0
+    rows = torch.from_numpy(rows_np)
+    out = torch.empty(233)
+    host_adjoint.host_fold(rows.data_ptr(), blocks, 233, out.data_ptr())
+    assert torch.equal(mk.fold_rows_plain(rows), out)
+    assert torch.equal(mk.fold_rows(rows), out)
+    np.testing.assert_allclose(out.numpy(), rows_np.astype(np.float64)
+                               .sum(0), rtol=1e-5, atol=1e-5)
+
+
 def test_backward_block_shared_memory(monkeypatch):
     """The wrappers refuse a scene whose backward block would not fit in
     the shared memory a block may use: the tables, their invariants
-    (triangle edges, R * R, the light plane), the tables' gradients and
-    128 threads' slots of 52 floats at a stride of 129."""
+    (triangle edges, R * R, the light plane), the four warps' tables of
+    gradients and 128 threads' slots of 40 floats at a stride of 129."""
     scene, _, _ = pt.builtin.reference_scene(device="cpu")
     view = torch.as_tensor(pt.Camera(eye=[0.5, 0.0, 2.5]).view_matrix)
     tables = mk.pack_tables(scene) + (view,)
     n = sum(t.numel() for t in tables)
     n_sph, n_tri = scene.spheres.count, scene.triangles.count
-    need = 4 * ((n + 9 * n_tri + n_sph + 11) + n + 52 * 129)
+    need = 4 * ((n + 9 * n_tri + n_sph + 11) + 4 * n + 40 * 129)
     assert mk.bwd_smem_bytes(scene) == need
     assert need < mk.MAX_SMEM_BYTES
     pix, px, py = pixel_grid(4, 4, "cpu")

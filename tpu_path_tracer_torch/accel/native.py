@@ -3,9 +3,11 @@
 
 ``bvh_native.cpp`` is host code.  It is compiled with ``g++`` at first use
 into ``tpu_path_tracer_torch/_build/``, under a name keyed by a hash of the
-source and the flags, with the JAX package's flags and C ABI.  Without a
-compiler the functions here return None and the callers run the NumPy
-builders of ``accel.bvh``, the reference implementation.
+source, the flags and the host's CPU (``-march=native`` builds for the CPU
+that compiles, so a library built on one host is never loaded on
+another), with the JAX package's flags and C ABI.  Without a compiler the
+functions here return None and the callers run the NumPy builders of
+``accel.bvh``, the reference implementation.
 """
 
 from __future__ import annotations
@@ -30,6 +32,22 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
 
 
+def host_key(gxx: str) -> str:
+    """What ``-march=native`` selects on this host: the target options
+    ``g++ -march=native -Q --help=target`` reports."""
+    return subprocess.run([gxx, "-march=native", "-Q", "--help=target"],
+                          check=True, capture_output=True, text=True).stdout
+
+
+def library_path(host: str) -> Path:
+    """The library's path for the CPU that ``host`` (:func:`host_key`)
+    describes: a hash of the flags, the source and the host."""
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    digest.update(_SRC.read_bytes())
+    digest.update(host.encode())
+    return BUILD_DIR / f"libtptbvh_{digest.hexdigest()[:16]}.so"
+
+
 def _build_lib() -> Optional[ctypes.CDLL]:
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
@@ -38,10 +56,8 @@ def _build_lib() -> Optional[ctypes.CDLL]:
     if gxx is None:
         _lib_failed = True
         return None
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    digest.update(_SRC.read_bytes())
-    so = BUILD_DIR / f"libtptbvh_{digest.hexdigest()[:16]}.so"
     try:
+        so = library_path(host_key(gxx))
         if not so.exists():
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

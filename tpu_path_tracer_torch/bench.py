@@ -103,7 +103,8 @@ KERNEL_MEAN_RTOL = 1e-3
 PARITY_RAYS = 1024
 EYE = (0.0, 0.0, 3.2)
 REFERENCE_EYE = (0.5, 0.0, 2.5)   # index.js:39
-# Kernel-name groups of the device-time breakdown.
+# Kernel-name groups of the device-time breakdown ("megakernel_bwd" holds
+# the backward kernel and the fold of its block rows).
 MEGAKERNELS = {"megakernel_fwd": ["megakernel_fwd"],
                "megakernel_bwd": ["megakernel_bwd"]}
 TRAVERSAL = {"bvh_closest_hit": ["bvh_stack_walk_kernel"],

@@ -27,27 +27,39 @@
 // bounce's intermediates from its record and propagates the adjoints of
 // (origin, direction, throughput), then of the camera ray.  The block
 // holds the scene tables, their invariants (tracer.cuh prepare_scene) and
-// the tables' gradients in shared memory, and flushes the gradients once
-// with global atomics, so the sum order changes from run to run.
+// one gradient table per warp in shared memory.
+//
+// Reproducible sums: the TPU kernel adds each grid step's cotangents to
+// revisited output blocks in grid order, so a step gives the same bits
+// every run.  Here every sum has a fixed order too, whatever the order in
+// which warps and blocks run: a warp adds its lanes' gradients to a table
+// of its own (lanes in order, below); at the end the block folds its
+// warps' tables in warp order into its own row of a [blocks, table]
+// scratch in global memory, and a second kernel (megakernel_bwd_fold_kernel)
+// folds the rows in a fixed tree.  No float atomic is left.
 //
 // What bounds it on this card, and what the design does about it (each
 // measured; PERF.md):
-//   * shared atomics to the same address: in a room most lanes of a warp
-//     hit the same wall and sample the same light.  Each thread adds its
-//     bounce's row gradients with plain stores into slots of its own in
-//     shared memory; after the bounce the warp's lanes that hit the same
-//     row sum each column (__match_any_sync) and one lane a column adds it
-//     with one atomic.  The light's and the camera's entries stay in the
-//     thread's slots over the whole pixel and are summed once a block.
+//   * many lanes adding to one row: in a room most lanes of a warp hit the
+//     same wall and sample the same light.  Each thread adds its bounce's
+//     row gradients with plain stores into slots of its own in shared
+//     memory; after the bounce the warp's lanes that hit the same row sum
+//     each column in lane order (__match_any_sync), and one lane a column
+//     adds the sum to the warp's table.  The light's entries stay in the
+//     thread's slots over the whole pixel and are summed once a block, in
+//     thread order; the camera's go through the row slot once a sample.
 //   * occupancy: the adjoint keeps many values live.  At least 5 blocks of
 //     128 threads an SM (96 registers, some spilled) hides more latency
-//     than 166 registers at 3.
+//     than 166 registers at 3.  The warps' tables cost 3 tables more shared
+//     memory than one; the camera's entries leaving the slots give 12
+//     floats a thread back.
 //   * the records: 56 bytes per bounce per pixel, written and read once,
 //     coalesced; they cost about 3% of the kernel's time and stay in
 //     global memory, where they leave shared memory to the slots.
 //
 // Built without nvcc (a plain C++ compiler), this file compiles the adjoint
-// for the CPU and leaves out the kernel and its entry point.
+// and the folds for the CPU and leaves out the kernels and their entry
+// points; a test emulates the kernel's blocks there with the same folds.
 
 #include "tracer.cuh"
 
@@ -605,30 +617,71 @@ TPT_HD void load_record(const float* rec, int b, int n, int i,
 // Camera gradient entries: the view matrix's first three rows.
 constexpr int CAM_GRADS = 12;
 
-// The backward kernel's block, and the slots each of its threads has in
-// shared memory: the widest row, the light and the camera.
+// Offset of the camera's entries in the tables (after the light's).
+TPT_HD int cam_offset(const Params& p) { return table_floats(p) - CAM_COLS; }
+
+// The backward kernel's block of BWD_WARPS warps, and the slots each of its
+// threads has in shared memory: the widest row (which takes the camera's
+// entries at the end of a sample) and the light.
+constexpr int WARP = 32;
 constexpr int BWD_THREADS = 128;
-constexpr int SLOT_FLOATS = TRI_COLS + LIGHT_COLS + CAM_GRADS;
-static_assert(TRI_COLS <= 32 && QUAD_COLS <= 32 && SPH_COLS <= 32,
+constexpr int BWD_WARPS = BWD_THREADS / WARP;
+constexpr int SLOT_FLOATS = TRI_COLS + LIGHT_COLS;
+static_assert(TRI_COLS <= WARP && QUAD_COLS <= WARP && SPH_COLS <= WARP,
               "flush_rows gives each column of a row one lane of the warp");
+static_assert(CAM_GRADS <= TRI_COLS, "the camera's entries use the row slot");
 
 // Dynamic shared memory of the backward kernel's block: the scene (tables
-// and invariants), the block's table gradients and the threads' slots at a
+// and invariants), one gradient table per warp and the threads' slots at a
 // stride of the block's size plus one.  The wrapper's check
 // (kernels/megakernel.py bwd_smem_bytes) counts the same, and a test built
 // for the CPU holds the two together.
 TPT_HD size_t bwd_smem_bytes(const Params& p) {
-  return sizeof(float) * ((size_t)scene_floats(p) + (size_t)table_floats(p) +
-                          (size_t)SLOT_FLOATS * (BWD_THREADS + 1));
+  return sizeof(float) *
+         ((size_t)scene_floats(p) + (size_t)BWD_WARPS * table_floats(p) +
+          (size_t)SLOT_FLOATS * (BWD_THREADS + 1));
+}
+
+// The block's shared memory, in this order.  Slot entry k of thread t lies
+// at slots[k * (nt + 1) + t]: the odd stride puts the entries flush_rows
+// reads at once (lanes on columns) in distinct banks.
+struct BwdBlock {
+  float* scene;  // scene_floats: the tables, then their invariants
+  float* warps;  // BWD_WARPS gradient tables of table_floats each
+  float* slots;  // SLOT_FLOATS entries a thread
+};
+
+TPT_HD BwdBlock bwd_block(float* smem, const Params& p) {
+  BwdBlock b;
+  b.scene = smem;
+  b.warps = smem + scene_floats(p);
+  b.slots = b.warps + BWD_WARPS * table_floats(p);
+  return b;
+}
+
+// Warp w's gradient table: no two warps add to one float, so each table's
+// sums come in the warp's own order.
+TPT_HD float* warp_table(const BwdBlock& b, const Params& p, int w) {
+  return b.warps + w * table_floats(p);
+}
+
+// Thread t's part of a block's set-up: the tables, zeroed gradient tables
+// and zeroed slots.  The invariants follow once every thread has done it.
+TPT_HD void init_block(const BwdBlock& b, const Params& p,
+                       const float* tables, int nt, int t) {
+  const int n = table_floats(p);
+  for (int k = t; k < n; k += nt) b.scene[k] = tables[k];
+  for (int k = t; k < BWD_WARPS * n; k += nt) b.warps[k] = 0.0f;
+  for (int k = 0; k < SLOT_FLOATS; ++k) b.slots[k * (nt + 1) + t] = 0.0f;
 }
 
 // Where one thread's table gradients go.  Built by a plain C++ compiler
 // (row == nullptr, stride 1) they go straight to the gradient tables G: the
 // winner's row of G, G.light and G.cam.  The kernel gives each thread slots
-// of its own in shared memory, entry k at [k * stride] (stride: the block's
-// size plus one): the winner row's columns, summed over the warp after each
-// bounce (flush_rows), and the light's and the camera's, summed over the
-// block at the end.  Either way one thread adds with a plain +=.
+// of its own in shared memory, entry k at [k * stride]: the winner row's
+// columns, summed over the warp after each bounce (flush_rows), the
+// camera's in the same slot after each sample, and the light's, summed
+// over the block at the end.  Either way one thread adds with a plain +=.
 struct Sink {
   float* row;    // the winner row's slot; nullptr: the winner's row of G
   float* light;  // LIGHT_COLS entries
@@ -636,50 +689,186 @@ struct Sink {
   int stride;
 };
 
+// Thread t's slots in a block of nt threads.
+TPT_HD Sink thread_sink(const BwdBlock& b, int nt, int t) {
+  Sink s;
+  s.stride = nt + 1;
+  s.row = b.slots + t;
+  s.light = b.slots + TRI_COLS * s.stride + t;
+  s.cam = s.row;
+  return s;
+}
+
+// The lowest set bit of a lane mask, as a lane.
+TPT_HD int lowest_lane(unsigned m) {
 #ifdef __CUDA_ARCH__
-// Adds the row slots of a warp's lanes to the block's gradient tables gsm
-// and zeroes them.  Lane j's slot holds column c at slots[c * stride + j];
-// key is the lane's row offset in the tables (-1: none) and cols the row's
-// width.  Lanes whose rows are the same sum each column first, so a row
-// takes one atomic per column however many lanes hit it, and the lanes of a
-// group's pass add to different columns.  Every lane of the warp calls it.
-__device__ void flush_rows(float* slots, int stride, int key, int cols,
-                           float* gsm) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  __syncwarp();
-  const unsigned group = __match_any_sync(full, key);
-  unsigned leaders =
-      __ballot_sync(full, key >= 0 && lane == __ffs(group) - 1);
+  return __ffs(m) - 1;
+#else
+  return __builtin_ffs((int)m) - 1;
+#endif
+}
+
+// Adds the row slots of a warp's lanes to the warp's gradient table and
+// zeroes them.  Lane j's slot holds column c at slots[c * stride + j]; its
+// key is its row's offset in the tables (-1: none) and cols the row's
+// width.  The lanes whose keys are equal form a group; groups go in the
+// order of their lowest lanes, and in a group lane c sums column c over the
+// members in lane order and adds the sum to the table.  So every sum has
+// one order, and the lanes of a group's pass add to different columns.
+// W holds the warp's primitives (CudaWarp on the card, LaneWarp on the
+// host); lane is the calling lane, and every lane of the warp calls it.
+template <class W>
+TPT_HD void flush_rows(const W& w, int lane, float* slots, int stride,
+                       float* table) {
+  unsigned leaders = w.leaders();
   while (leaders) {
-    const int l = __ffs(leaders) - 1;
+    const int l = lowest_lane(leaders);
     leaders &= leaders - 1;
-    const int gkey = __shfl_sync(full, key, l);
-    const unsigned members = __shfl_sync(full, group, l);
-    const int gcols = __shfl_sync(full, cols, l);
+    const int gkey = w.key_of(l);
+    const unsigned members = w.group_of(l);
+    const int gcols = w.cols_of(l);
     if (lane < gcols) {
       float sum = 0.0f;
       for (unsigned m = members; m; m &= m - 1) {
-        float* e = slots + lane * stride + (__ffs(m) - 1);
+        float* e = slots + lane * stride + lowest_lane(m);
         sum += *e;
         *e = 0.0f;
       }
-      if (sum != 0.0f) atomicAdd(gsm + gkey + lane, sum);
+      table[gkey + lane] += sum;
     }
   }
-  __syncwarp();
 }
+
+#ifdef __CUDA_ARCH__
+// The warp primitives flush_rows uses, for the calling lane's key and
+// width: its group (the lanes with its key), the groups' lowest lanes, and
+// another lane's values.
+struct CudaWarp {
+  static constexpr unsigned FULL = 0xffffffffu;
+  int key, cols;
+  unsigned group, lead;
+  __device__ CudaWarp(int k, int c) : key(k), cols(c) {
+    group = __match_any_sync(FULL, k);
+    lead = __ballot_sync(
+        FULL, k >= 0 && (int)(threadIdx.x & 31) == __ffs(group) - 1);
+  }
+  __device__ unsigned leaders() const { return lead; }
+  __device__ int key_of(int l) const { return __shfl_sync(FULL, key, l); }
+  __device__ int cols_of(int l) const { return __shfl_sync(FULL, cols, l); }
+  __device__ unsigned group_of(int l) const {
+    return __shfl_sync(FULL, group, l);
+  }
+};
 #endif
+
+#ifdef __CUDACC__
+// The kernel's flush after each bounce and sample: the warp's lanes hand
+// their keys and widths to flush_rows, adding to the warp's table.
+struct WarpFlush {
+  float* slots;  // the slots of the warp's lane 0
+  int stride;
+  float* table;
+  TPT_HD void operator()(int key, int cols) const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+    flush_rows(CudaWarp(key, cols), (int)(threadIdx.x & 31), slots, stride,
+               table);
+    __syncwarp();
+#endif
+  }
+};
+#else
+// The host's stand-in for the warp primitives: all 32 lanes' keys and
+// widths at once, so each lane's flush_rows can run on its own.  Lanes
+// write disjoint floats in a flush, so the lanes may run in any order.
+struct LaneWarp {
+  const int* key;   // [WARP]
+  const int* cols;  // [WARP]
+  unsigned group_of(int l) const {  // __match_any_sync
+    unsigned g = 0;
+    for (int j = 0; j < WARP; ++j) g |= (key[j] == key[l]) ? 1u << j : 0u;
+    return g;
+  }
+  unsigned leaders() const {  // __ballot_sync
+    unsigned m = 0;
+    for (int j = 0; j < WARP; ++j) {
+      m |= (key[j] >= 0 && j == lowest_lane(group_of(j))) ? 1u << j : 0u;
+    }
+    return m;
+  }
+  int key_of(int l) const { return key[l]; }  // __shfl_sync
+  int cols_of(int l) const { return cols[l]; }
+};
+#endif
+
+// No flush: a plain C++ build's Sink adds straight to G.
+struct NoFlush {
+  TPT_HD void operator()(int, int) const {}
+};
+
+// Entry k of a block's table gradients: the warps' tables in warp order,
+// then for the light's entries the threads' slots in thread order.
+TPT_HD float fold_block_entry(const BwdBlock& b, const Params& p, int nt,
+                              int k) {
+  const int n = table_floats(p);
+  float v = 0.0f;
+  for (int w = 0; w < BWD_WARPS; ++w) v += b.warps[w * n + k];
+  const int e = k - (cam_offset(p) - LIGHT_COLS);
+  if (e >= 0 && e < LIGHT_COLS) {
+    const float* src = b.slots + (TRI_COLS + e) * (nt + 1);
+    for (int j = 0; j < nt; ++j) v += src[j];
+  }
+  return v;
+}
+
+// Thread t's part of a block's end: its entries of the block's row
+// rows[block] of the [blocks, table_floats] scratch.
+TPT_HD void store_block(const BwdBlock& b, const Params& p, int nt, int t,
+                        int block, float* rows) {
+  const int n = table_floats(p);
+  for (int k = t; k < n; k += nt) {
+    rows[(size_t)block * n + k] = fold_block_entry(b, p, nt, k);
+  }
+}
+
+// The fold of the blocks' rows (megakernel_bwd_fold_kernel): column col of
+// a [blocks, n] scratch is summed in FOLD_PARTS parts, part j over rows j,
+// j + FOLD_PARTS, ... in order, then the parts in order.  A fold block
+// takes FOLD_COLS columns.
+constexpr int FOLD_COLS = 32;
+constexpr int FOLD_PARTS = 32;
+
+TPT_HD float fold_part(const float* rows, int blocks, int n, int col,
+                       int part) {
+  float s = 0.0f;
+#ifdef __CUDA_ARCH__
+#pragma unroll 8
+#endif
+  for (int r = part; r < blocks; r += FOLD_PARTS) {
+    s += rows[(size_t)r * n + col];
+  }
+  return s;
+}
+
+TPT_HD float fold_parts(const float* parts, int stride) {
+  float s = 0.0f;
+  for (int j = 0; j < FOLD_PARTS; ++j) s += parts[j * stride];
+  return s;
+}
 
 // The backward trace of pixel i: replays each sample's forward into the
 // records, then sweeps them in reverse.  gout is the pixel's radiance
-// cotangent; table gradients go to sink (and G).  The reverse sweep runs
-// max_bounces steps on every lane, live (i < p.n) or not, so the kernel's
-// warps meet in step at each flush_rows.
+// cotangent; table gradients go to sink (and G).  flush(key, cols) follows
+// each bounce of the sweep and each sample's camera entries: the row slot's
+// offset in the tables (-1: nothing there) and width.  The reverse sweep
+// runs max_bounces steps on every lane, live (i < p.n) or not, so the
+// kernel's warps meet in step at each flush.
+template <class Flush>
 TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
                             const Tables<float>& G, const Sink& sink,
                             bool live, uint32_t state, float pxf, float pyf,
-                            const float gout[3], float* rec, int i) {
+                            const float gout[3], float* rec, int i,
+                            const Flush& flush) {
   const V3 eye = v3(S.cam[3], S.cam[7], S.cam[11]);
   const int dpb = draws_per_bounce(p);
   const int st = sink.stride;
@@ -739,12 +928,7 @@ TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
           cols = hit_cols(h);
         }
       }
-#ifdef __CUDA_ARCH__
-      flush_rows(sink.row - (threadIdx.x & 31), st, key, cols, G.sph);
-#else
-      (void)key;
-      (void)cols;
-#endif
+      flush(key, cols);
     }
 
     if (live) {
@@ -759,7 +943,17 @@ TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
         add_grad(sink.cam, st, 4 * r + 3, obs[r]);
       }
     }
+    flush(live ? cam_offset(p) : -1, CAM_GRADS);
   }
+}
+
+// The same with no flush, for a Sink that adds straight to G.
+TPT_HD void trace_pixel_bwd(const Params& p, const Tables<const float>& S,
+                            const Tables<float>& G, const Sink& sink,
+                            bool live, uint32_t state, float pxf, float pyf,
+                            const float gout[3], float* rec, int i) {
+  trace_pixel_bwd(p, S, G, sink, live, state, pxf, pyf, gout, rec, i,
+                  NoFlush());
 }
 
 }  // namespace tpt
@@ -779,34 +973,22 @@ megakernel_bwd_kernel(const float* __restrict__ tables,
                       const int* __restrict__ px_in,
                       const int* __restrict__ py_in,
                       const float* __restrict__ gout,
-                      float* __restrict__ rec, float* __restrict__ gtables,
+                      float* __restrict__ rec, float* __restrict__ rows,
                       Params p) {
-  // Shared memory: the scene (tables and invariants), the block's table
-  // gradients, then the threads' slots.
   extern __shared__ float smem[];
-  const int n_floats = table_floats(p);
-  float* gsm = smem + scene_floats(p);
-  float* slots = gsm + n_floats;
-  // Slot entry k of thread t at slots[k * ss + t]: the odd stride puts the
-  // entries flush_rows reads at once (lanes on columns) in distinct banks.
-  const int nt = blockDim.x, tid = threadIdx.x, ss = nt + 1;
-  for (int k = tid; k < n_floats; k += nt) {
-    smem[k] = tables[k];
-    gsm[k] = 0.0f;
-  }
-  for (int k = 0; k < SLOT_FLOATS; ++k) slots[k * ss + tid] = 0.0f;
+  const BwdBlock blk = bwd_block(smem, p);
+  const int nt = blockDim.x, tid = threadIdx.x;
+  init_block(blk, p, tables, nt, tid);
   __syncthreads();
   for (int k = tid; k < scene_invariants(p); k += nt) {
-    prepare_scene(p, smem, k);
+    prepare_scene(p, blk.scene, k);
   }
   __syncthreads();
-  const Tables<const float> S = tables_at<const float>(smem, p);
-  const Tables<float> G = tables_at<float>(gsm, p);
-  Sink sink;
-  sink.row = slots + tid;
-  sink.light = slots + TRI_COLS * ss + tid;
-  sink.cam = slots + (TRI_COLS + LIGHT_COLS) * ss + tid;
-  sink.stride = ss;
+  const Tables<const float> S = tables_at<const float>(blk.scene, p);
+  float* table = warp_table(blk, p, tid / WARP);
+  const Sink sink = thread_sink(blk, nt, tid);
+  const WarpFlush flush = {blk.slots + (tid & ~(WARP - 1)), sink.stride,
+                           table};
 
   const int i = blockIdx.x * nt + tid;
   const bool live = i < p.n;
@@ -819,38 +1001,42 @@ megakernel_bwd_kernel(const float* __restrict__ tables,
     pxf = (float)px_in[i];
     pyf = (float)py_in[i];
   }
-  trace_pixel_bwd(p, S, G, sink, live, state, pxf, pyf, g, rec, i);
+  trace_pixel_bwd(p, S, tables_at<float>(table, p), sink, live, state, pxf,
+                  pyf, g, rec, i, flush);
   __syncthreads();
-  // The light's and the camera's entries: one thread sums each over the
-  // block's slots.
-  if (tid < LIGHT_COLS + CAM_GRADS) {
-    const float* src = slots + (TRI_COLS + tid) * ss;
-    float sum = 0.0f;
-    for (int j = 0; j < nt; ++j) sum += src[j];
-    if (tid < LIGHT_COLS) {
-      G.light[tid] += sum;
-    } else {
-      G.cam[tid - LIGHT_COLS] += sum;
-    }
-  }
+  store_block(blk, p, nt, tid, blockIdx.x, rows);
+}
+
+// Sums the backward's block rows [blocks, n] into grad [n], FOLD_COLS
+// columns a block, each in FOLD_PARTS parts (fold_part, fold_parts): the
+// same tree whatever the order of the blocks.  Memory-bound: it reads the
+// rows once, 128 bytes a warp per row.
+__global__ void __launch_bounds__(FOLD_COLS * FOLD_PARTS)
+megakernel_bwd_fold_kernel(const float* __restrict__ rows, int blocks, int n,
+                           float* __restrict__ grad) {
+  __shared__ float parts[FOLD_PARTS * FOLD_COLS];
+  const int c = threadIdx.x % FOLD_COLS, j = threadIdx.x / FOLD_COLS;
+  const int col = blockIdx.x * FOLD_COLS + c;
+  parts[j * FOLD_COLS + c] =
+      col < n ? fold_part(rows, blocks, n, col, j) : 0.0f;
   __syncthreads();
-  for (int k = tid; k < n_floats; k += nt) {
-    const float v = gsm[k];
-    if (v != 0.0f) atomicAdd(gtables + k, v);
-  }
+  if (j == 0 && col < n) grad[col] = fold_parts(parts + c, FOLD_COLS);
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes (kernels/megakernel.py).  ``tables`` is
-// the flat table buffer of the forward; ``gout`` the radiance cotangent
-// [n, 3]; ``rec`` scratch of max_bounces * REC_FIELDS * n floats;
-// ``gtables`` the zeroed gradient buffer, the tables' size, to which the
-// kernel adds.  Returns cudaGetLastError() of the launch.
+// C entry points, bound with ctypes (kernels/megakernel.py).  Each returns
+// cudaGetLastError() of its launch.
+//
+// tpt_megakernel_bwd: ``tables`` is the flat table buffer of the forward;
+// ``gout`` the radiance cotangent [n, 3]; ``rec`` scratch of max_bounces *
+// REC_FIELDS * n floats; ``rows`` scratch of [ceil(n / BWD_THREADS),
+// table_floats] floats, each block's table gradients, which the kernel
+// writes in full.
 extern "C" int tpt_megakernel_bwd(
     const float* tables, int n_sph, int n_quad, int n_tri,
     const int* state, const int* px, const int* py, const float* gout,
-    float* rec, float* gtables, int n, int spp, int max_bounces, int grid_n,
+    float* rec, float* rows, int n, int spp, int max_bounces, int grid_n,
     int use_nee, int has_volumes, int rr_start_bounce, float t_min,
     float t_max, float inf, float p_light, float bg_r, float bg_g,
     float bg_b, float aspect, float fov_factor, float w, float h,
@@ -872,8 +1058,44 @@ extern "C" int tpt_megakernel_bwd(
   const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
   megakernel_bwd_kernel<<<blocks, BWD_THREADS, smem_bytes,
                           (cudaStream_t)stream>>>(tables, state, px, py, gout,
-                                                  rec, gtables, p);
+                                                  rec, rows, p);
   return (int)cudaGetLastError();
+}
+
+// tpt_megakernel_bwd_fold: ``rows`` [blocks, n] as tpt_megakernel_bwd
+// wrote them; ``grad`` [n] receives their sum.
+extern "C" int tpt_megakernel_bwd_fold(const float* rows, int blocks, int n,
+                                       float* grad, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int grid = (n + FOLD_COLS - 1) / FOLD_COLS;
+  megakernel_bwd_fold_kernel<<<grid, FOLD_COLS * FOLD_PARTS, 0,
+                               (cudaStream_t)stream>>>(rows, blocks, n, grad);
+  return (int)cudaGetLastError();
+}
+
+// tpt_megakernel_bwd_blocks_per_sm: the backward kernel's blocks an SM
+// holds for a scene of these counts (its registers and shared memory), or
+// -1 if the runtime refuses to say.
+extern "C" int tpt_megakernel_bwd_blocks_per_sm(int n_sph, int n_quad,
+                                                int n_tri) {
+  Params p = {};
+  p.n_sph = n_sph;
+  p.n_quad = n_quad;
+  p.n_tri = n_tri;
+  const size_t smem_bytes = bwd_smem_bytes(p);
+  if (smem_bytes > 48 * 1024 &&
+      cudaFuncSetAttribute(megakernel_bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_bytes) != cudaSuccess) {
+    return -1;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, megakernel_bwd_kernel, BWD_THREADS, smem_bytes) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }
 
 #endif  // __CUDACC__

@@ -13,6 +13,9 @@ shading and Russian roulette, so ray state never leaves registers.
   hand-written adjoint that replays the same PCG stream and returns the
   gradients of the five packed tables; ``pack_tables``' torch ops carry
   them to the scene tensors, as the JAX custom VJP ``_megakernel`` does.
+  Each block writes its sums to a row of its own, and a second kernel
+  (:func:`fold_rows`) folds the rows in a fixed order, so the gradients
+  have the same bits every run, as the JAX kernel's sequential grid gives.
 
 Their contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw
 the same PCG stream and bounce algebra as the wavefront integrator, which
@@ -56,20 +59,27 @@ MAX_SMEM_BYTES = 232448
 # the JAX routing until lifting it is measured (ROADMAP).
 MAX_UNROLL_BOUNCES = 64
 
-# Launches of the CUDA kernels in this process: the forward and the
-# backward.
+# Launches of the CUDA kernels in this process: the forward, the backward
+# and the backward's fold of its block rows.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FOLD_LAUNCHES = 0
 
 # Words per bounce record of the backward's scratch (csrc/megakernel_bwd.cu).
 REC_FIELDS = 14
 # Invariants the kernels derive from the tables into shared memory
 # (csrc/tracer.cuh prepare_scene): per triangle, per sphere, of the light.
 TRI_PRE, SPH_PRE, LIGHT_PRE = 9, 1, 11
-# The backward's block and its per-thread gradient slots: the widest row,
-# the light and the camera's 12 entries (csrc/megakernel_bwd.cu).
+# The backward's block, its warps (a gradient table each) and its
+# per-thread gradient slots: the widest row (which takes the camera's 12
+# entries too) and the light (csrc/megakernel_bwd.cu).
 BWD_THREADS = 128
-SLOT_FLOATS = TRI_COLS + LIGHT_COLS + 12
+BWD_WARPS = BWD_THREADS // 32
+SLOT_FLOATS = TRI_COLS + LIGHT_COLS
+# The fold of the block rows: column j of the sum is FOLD_PARTS partial
+# sums, part k over rows k, k + FOLD_PARTS, ... in order, then the parts in
+# order (csrc/megakernel_bwd.cu fold_part, fold_parts).
+FOLD_PARTS = 32
 
 
 def _table_floats(scene: SceneData) -> int:
@@ -80,11 +90,11 @@ def _table_floats(scene: SceneData) -> int:
 def bwd_smem_bytes(scene: SceneData) -> int:
     """Dynamic shared memory of a backward block (``bwd_smem_bytes`` in
     ``csrc/megakernel_bwd.cu``, held to this by a test): the tables and
-    their invariants (``scene_floats`` in ``csrc/tracer.cuh``), the block's
-    table gradients and the threads' slots."""
+    their invariants (``scene_floats`` in ``csrc/tracer.cuh``), one table
+    of gradients per warp and the threads' slots."""
     invariants = (scene.triangles.count * TRI_PRE
                   + scene.spheres.count * SPH_PRE + LIGHT_PRE)
-    return 4 * (2 * _table_floats(scene) + invariants
+    return 4 * ((1 + BWD_WARPS) * _table_floats(scene) + invariants
                 + SLOT_FLOATS * (BWD_THREADS + 1))
 
 
@@ -232,12 +242,15 @@ def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scalars = [i] * 7 + [f] * 13
     fwd, bwd = lib.tpt_megakernel_fwd, lib.tpt_megakernel_bwd
+    fold = lib.tpt_megakernel_bwd_fold
     if fwd.argtypes is None:
         fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p]
         fwd.restype = ctypes.c_int
         bwd.argtypes = [p, i, i, i, p, p, p, p, p, p] + scalars + [p]
         bwd.restype = ctypes.c_int
-    return fwd, bwd
+        fold.argtypes = [p, i, i, p, p]
+        fold.restype = ctypes.c_int
+    return fwd, bwd, fold
 
 
 def _prepare(rand_state, px, py, tables, scene: SceneData):
@@ -271,7 +284,7 @@ def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
     n = px32.shape[0]
     out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
     stream = torch.cuda.current_stream(px32.device).cuda_stream
-    fwd, _ = _bind(_build.load())
+    fwd = _bind(_build.load())[0]
     err = fwd(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
               py32.data_ptr(), out.data_ptr(),
               *_scalar_args(scene, meta, cfg, n), stream)
@@ -281,10 +294,10 @@ def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
     return out
 
 
-def _launch_bwd(flat, counts, state, px32, py32, grad_out, scene, meta,
-                cfg):
-    """Launch the backward kernel on the current stream; returns the
-    gradient of ``sum(radiance * grad_out)`` for the flat tables."""
+def _launch_bwd_rows(flat, counts, state, px32, py32, grad_out, scene,
+                     meta, cfg):
+    """Launch the backward kernel on the current stream; returns each
+    block's table gradients, ``[blocks, tables]``, for :func:`fold_rows`."""
     global BWD_LAUNCHES
     from . import _build
 
@@ -294,19 +307,69 @@ def _launch_bwd(flat, counts, state, px32, py32, grad_out, scene, meta,
     if grad_out.shape != (n, 3):
         raise ValueError(f"radiance cotangent must be [{n}, 3], got "
                          f"{tuple(grad_out.shape)}")
-    grad = torch.zeros_like(flat)
+    rows = torch.empty((-(-n // BWD_THREADS), flat.numel()),
+                       dtype=torch.float32, device=device)
     rec = torch.empty((max(cfg.max_bounces, 1) * REC_FIELDS * n,),
                       dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    _, bwd = _bind(_build.load())
+    bwd = _bind(_build.load())[1]
     err = bwd(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
               py32.data_ptr(), grad_out.data_ptr(), rec.data_ptr(),
-              grad.data_ptr(), *_scalar_args(scene, meta, cfg, n), stream)
+              rows.data_ptr(), *_scalar_args(scene, meta, cfg, n), stream)
     if err != 0:
         raise RuntimeError(f"megakernel backward launch failed: CUDA error "
                            f"{err}")
     BWD_LAUNCHES += 1
-    return grad
+    return rows
+
+
+def fold_rows_plain(rows):
+    """The fold kernel's plain version: the sum over the rows of ``rows``
+    ``[blocks, n]`` in the kernel's order, so of the same bits: part k sums
+    rows k, k + FOLD_PARTS, ... in order, then the parts are summed in
+    order.  (Zero rows pad the last chunk: a sum that starts at +0 is never
+    -0, so adding +0 keeps its bits.)"""
+    blocks, n = rows.shape
+    pad = rows.new_zeros((-blocks % FOLD_PARTS, n))
+    parts = rows.new_zeros((FOLD_PARTS, n))
+    for chunk in torch.cat([rows, pad]).view(-1, FOLD_PARTS, n):
+        parts += chunk
+    out = rows.new_zeros((n,))
+    for part in parts:
+        out += part
+    return out
+
+
+def fold_rows(rows):
+    """The sum over the rows of ``rows`` ``[blocks, n]`` (float32) in a
+    fixed order, the backward's sum over its blocks: CPU tensors take the
+    plain version, CUDA tensors launch the fold kernel."""
+    global FOLD_LAUNCHES
+    if rows.device.type == "cpu":
+        return fold_rows_plain(rows)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fold_rows runs on the CPU or a CUDA device, not "
+                         f"{rows.device}")
+    from . import _build
+
+    rows = rows.to(torch.float32).contiguous()
+    blocks, n = rows.shape
+    out = torch.empty((n,), dtype=torch.float32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    fold = _bind(_build.load())[2]
+    err = fold(rows.data_ptr(), blocks, n, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"backward fold launch failed: CUDA error {err}")
+    FOLD_LAUNCHES += 1
+    return out
+
+
+def _launch_bwd(flat, counts, state, px32, py32, grad_out, scene, meta,
+                cfg):
+    """The backward kernel and its fold on the current stream; returns the
+    gradient of ``sum(radiance * grad_out)`` for the flat tables."""
+    return fold_rows(_launch_bwd_rows(flat, counts, state, px32, py32,
+                                      grad_out, scene, meta, cfg))
 
 
 class _Megakernel(torch.autograd.Function):
