@@ -162,7 +162,8 @@ from tpu_path_tracer_torch.utils.bounds import (
     EDGE_REST_FLOPS, EDGE_SIGN_FLOPS, PAIR_INV_FLOPS, PAIR_SLAB_FLOPS,
     PEAK_FP32_FLOPS, PEAK_HBM_BYTES, bound, counted_walk, megakernel_bound,
     pack_bound, traversal_bound)
-from tpu_path_tracer_torch.utils.profiling import (device_us, kernel_rows,
+from tpu_path_tracer_torch.utils.profiling import (counts, device_us,
+                                                   kernel_rows,
                                                    profile_device_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -333,6 +334,13 @@ def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
+def launches_since(before, *kernels):
+    """The launches of each of ``kernels`` since ``before``, a copy of the
+    program's counters (``utils.profiling.counts``)."""
+    now = counts()
+    return {k: now[k] - before[k] for k in kernels}
+
+
 def run_cmd(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f"{' '.join(cmd)} failed: {proc.stderr}")
@@ -485,19 +493,18 @@ def golden_phase(torch, pt, device):
 
 def main_path_phase(torch, pt, device, frames=16):
     import numpy as np
-    from tpu_path_tracer_torch.kernels import megakernel as mk
 
     scene, meta, _ = pt.builtin.reference_scene(device=device)
     cfg = pt.RenderConfig(width=512, height=512, max_bounces=4,
                           use_megakernel=True)
     renderer = pt.Renderer(scene, meta, cfg)
     torch.cuda.synchronize()
-    mk.LAUNCHES = 0
+    before = counts()
     t0 = time.perf_counter()
     fb = renderer.render_animation(frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = mk.LAUNCHES
+    launches = launches_since(before, "megakernel_fwd")["megakernel_fwd"]
     fb_np = fb.cpu().numpy()
     img = renderer.display()
     png = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
@@ -649,13 +656,14 @@ def grad_pair(torch, pt, device, scene, meta, cfg, eye, groups, with_view,
 
     # The kernel route: forward and backward kernels, one launch each.
     params = leaves()
-    before = (mk.LAUNCHES, mk.BWD_LAUNCHES)
+    before = counts()
     rad = trace(params, mk.path_trace_pixels_megakernel)
     loss_k = torch.mean((rad - target) ** 2)
     got = torch.autograd.grad(loss_k, list(params.values()),
                               allow_unused=True)
     torch.cuda.synchronize()
-    check((mk.LAUNCHES, mk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1),
+    check(launches_since(before, "megakernel_fwd", "megakernel_bwd")
+          == {"megakernel_fwd": 1, "megakernel_bwd": 1},
           "the kernel route did not launch each kernel once")
     # The plain version.
     params = leaves()
@@ -860,23 +868,19 @@ def train_setup(torch, pt, device, use_megakernel):
 
 
 def train_run(torch, pt, device, steps):
-    """``steps`` train steps of :func:`train_setup` through the kernels,
-    the launch counts set to 0 just before them; returns the losses, the
-    parameters and the Adam state after them, the seconds the steps took
-    and the kernels' launches in them."""
-    from tpu_path_tracer_torch.kernels import megakernel as mk
-
+    """``steps`` train steps of :func:`train_setup` through the kernels;
+    returns the losses, the parameters and the Adam state after them, the
+    seconds the steps took and the kernels' launches in them."""
     step, params, target, view, optimizer = train_setup(torch, pt, device,
                                                         True)
     torch.cuda.synchronize()
-    mk.LAUNCHES = mk.BWD_LAUNCHES = mk.FOLD_LAUNCHES = 0
+    before = counts()
     t0 = time.perf_counter()
     losses = [step(params, target, 1, view) for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"megakernel_fwd": mk.LAUNCHES,
-                "megakernel_bwd": mk.BWD_LAUNCHES,
-                "megakernel_bwd_fold": mk.FOLD_LAUNCHES}
+    launches = launches_since(before, "megakernel_fwd", "megakernel_bwd",
+                              "megakernel_bwd_fold")
     state = {f"{k}.{name}": v for k, p in params.items()
              for name, v in optimizer.state[p].items()}
     return (torch.stack(losses), {k: p.detach() for k, p in params.items()},
@@ -1236,7 +1240,6 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
     through the kernel and through the plain walk, same PCG states."""
     import numpy as np
     from tpu_path_tracer_torch.integrator.render import render_frame
-    from tpu_path_tracer_torch.kernels import traversal
 
     scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     check(meta.traversal == "bvh", "the mesh scene has no BVH")
@@ -1244,13 +1247,13 @@ def mesh_main_path_phase(torch, pt, device, frames=8):
     renderer = pt.Renderer(scene, meta, cfg,
                            pt.Camera(eye=MESH_EYE, center=[0, 0, 0]))
     torch.cuda.synchronize()
-    traversal.LAUNCHES = traversal.PACK_LAUNCHES = 0
+    before = counts()
     start = time.perf_counter()
     fb = renderer.render_animation(frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = traversal.LAUNCHES
-    pack_launches = traversal.PACK_LAUNCHES
+    launches, pack_launches = launches_since(
+        before, "bvh_closest_hit", "bvh_pack").values()
     fb_np = fb.cpu().numpy()
     img = renderer.display()
     png = os.path.join(REPO, "tpu_path_tracer_torch", "_build",
@@ -1425,12 +1428,11 @@ def mesh_train_phase(torch, pt, device, steps=3):
     parameters, the BVH refit inside apply_params every step, the
     traversal kernel's launches counted around the steps alone."""
     import numpy as np
-    from tpu_path_tracer_torch.kernels import traversal
 
     step, params, target, view, scene, cfg = mesh_train_setup(torch, pt,
                                                               device)
     torch.cuda.synchronize()
-    traversal.LAUNCHES = traversal.PACK_LAUNCHES = 0
+    before = counts()
     losses, step_ms, grad_max = [], [], []
     for _ in range(steps):
         start = time.perf_counter()
@@ -1442,19 +1444,20 @@ def mesh_train_phase(torch, pt, device, steps=3):
         for k, v in params.items():
             check(bool(torch.isfinite(v.grad).all()),
                   f"non-finite gradient {k}")
-    launches = traversal.LAUNCHES
+    launches, pack_launches = launches_since(
+        before, "bvh_closest_hit", "bvh_pack").values()
     phase("mesh_train", tris=scene.triangles.count,
           size=f"{cfg.width}x{cfg.height}",
           max_bounces=cfg.max_bounces, groups=list(MESH_GROUPS), steps=steps,
           losses=losses, step_ms=step_ms, grad_max=grad_max,
-          launches=launches, pack_launches=traversal.PACK_LAUNCHES)
+          launches=launches, pack_launches=pack_launches)
     check(all(np.isfinite(losses)), "non-finite mesh training loss")
     check(all(g[k] > 0 for g in grad_max for k in ("tri_a", "tri_b",
                                                    "tri_c")),
           "zero vertex gradients")
     check(launches == cfg.max_bounces * steps,
           f"traversal kernel launched {launches} times in {steps} steps")
-    check(traversal.PACK_LAUNCHES == launches,
+    check(pack_launches == launches,
           "the refit's tables were not packed for every launch")
     return statistics.median(step_ms)
 
@@ -1593,10 +1596,6 @@ EMIT_WRAPPER_KERNELS = {
                   "pair_fill_kernel"),
     "pairbin_best": ("pair_reduce_kernel", "pairbin_finalize_kernel"),
     "pair_advance": ("pair_reduce_kernel", "pair_advance_kernel")}
-EMIT_COUNTERS = {"emit_pairbin": "PAIRBIN_EMIT_LAUNCHES",
-                 "emit_pair": "PAIR_EMIT_LAUNCHES",
-                 "pairbin_best": "PAIRBIN_BEST_LAUNCHES",
-                 "pair_advance": "PAIR_ADVANCE_LAUNCHES"}
 
 
 @contextlib.contextmanager
@@ -2153,7 +2152,6 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
     import numpy as np
     from tpu_path_tracer_torch.integrator.render import render_frame
     from tpu_path_tracer_torch.kernels import pair_sweep as ps
-    from tpu_path_tracer_torch.kernels import traversal
 
     scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
     cfg = pt.RenderConfig(**MESH_KW)
@@ -2171,18 +2169,14 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
                                pt.Camera(eye=MESH_EYE, center=[0, 0, 0]))
         with pair_dispatch(route):
             torch.cuda.synchronize()
-            ps.PAIR_LAUNCHES = ps.PAIRBIN_LAUNCHES = traversal.LAUNCHES = 0
-            for counter in EMIT_COUNTERS.values():
-                setattr(ps, counter, 0)
+            before = counts()
             start = time.perf_counter()
             fb = renderer.render_animation(frames)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - start
-            counts = {"pairbin_sweep": ps.PAIRBIN_LAUNCHES,
-                      "pair_sweep": ps.PAIR_LAUNCHES,
-                      "bvh_closest_hit": traversal.LAUNCHES}
-            counts.update({w: getattr(ps, c)
-                           for w, c in EMIT_COUNTERS.items()})
+            launches = launches_since(before, "pairbin_sweep", "pair_sweep",
+                                      "bvh_closest_hit",
+                                      *EMIT_WRAPPER_KERNELS)
             calls, log = [], []
             with recorded_sweep(route, calls), recorded_emission(route,
                                                                  log):
@@ -2213,7 +2207,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
             "rays_served", "pairs", "rows", "segments", "tables_read")}
         phase("pair_main_path", route=route, tris=scene.triangles.count,
               size=f"{cfg.width}x{cfg.height}", max_bounces=cfg.max_bounces,
-              frames=frames, launches=counts, seconds=round(seconds, 4),
+              frames=frames, launches=launches, seconds=round(seconds, 4),
               fb_mean=fb_np.mean(0).tolist(),
               frame_launches=frame_launches, **row, **served,
               share_within_tol=share, tol=KERNEL_TOL,
@@ -2223,18 +2217,18 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
                                                 "max_abs_err", "plain_ms",
                                                 "call_device_ms") if f in v}
                         for k, v in emitted.items()})
-        check(all(counts[k] > 0 for k in mine),
-              f"{route}: a kernel of its route was never launched: {counts}")
-        check(all(v == 0 for k, v in counts.items() if k not in mine),
-              f"{route}: another traversal kernel ran: {counts}")
+        check(all(launches[k] > 0 for k in mine),
+              f"{route}: a kernel of its route was never launched: {launches}")
+        check(all(v == 0 for k, v in launches.items() if k not in mine),
+              f"{route}: another traversal kernel ran: {launches}")
         check(all(v["equal"] for v in emitted.values()),
               f"{route}: the emission on the card differs from the torch "
               f"emission on the main path")
         if route == "pairbin":
             # One launch per bounce; a bounce whose rays reach no bin
             # launches nothing.
-            check(counts[own] <= cfg.max_bounces * frames,
-                  f"pairbin: {counts[own]} launches in {frames} frames")
+            check(launches[own] <= cfg.max_bounces * frames,
+                  f"pairbin: {launches[own]} launches in {frames} frames")
         check(row["same_index"], f"{route}: kernel and plain indices differ "
               f"on the main path's launches")
         check(row["t_bit_equal"], f"{route}: kernel t differs from plain "
@@ -2244,7 +2238,8 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
         check(np.isfinite(fb_np).all(), f"{route}: non-finite framebuffer")
         check(mean_rel <= PAIR_FRAME_MEAN_RTOL,
               f"{route}: frame mean {mean_rel:.4f} from the BVH route's")
-        out[own] = {"launches": counts[own], "frame_launches": frame_launches,
+        out[own] = {"launches": launches[own],
+                    "frame_launches": frame_launches,
                     "max_abs_err": row["max_abs_err"],
                     "plain_ms": row["plain_ms_per_launch"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2254,7 +2249,7 @@ def pair_main_path_phase(torch, pt, device, smi, frames=3):
             flops = sum(w["flops"] for w in em["work"]) / n_calls
             nbytes = sum(w["bytes"] for w in em["work"]) / n_calls
             ms, by = bound(flops, nbytes)
-            out[wrapper] = {"launches": counts[wrapper],
+            out[wrapper] = {"launches": launches[wrapper],
                             "frame_launches": n_calls,
                             "max_abs_err": em["max_abs_err"],
                             "plain_ms": em["plain_ms"], "bound_ms": ms,
@@ -2400,7 +2395,6 @@ def dist_train(torch, pt, device, mesh):
     from tpu_path_tracer_torch.diff.params import apply_params, extract_params
     from tpu_path_tracer_torch.dist import render_dist
     from tpu_path_tracer_torch.dist.sharding import mesh_size, shard_scene
-    from tpu_path_tracer_torch.kernels import megakernel as mk
 
     scene, meta, _ = pt.builtin.cornell_box(device=device)
     if mesh is not None:
@@ -2417,8 +2411,7 @@ def dist_train(torch, pt, device, mesh):
         mesh, scene, meta, cfg, apply_params,
         torch.optim.Adam(params.values(), lr=5e-2))
     torch.cuda.synchronize()
-    mk.LAUNCHES = 0
-    mk.BWD_LAUNCHES = 0
+    before = counts()
     steps, ms = [], []
     for _ in range(DIST_STEPS):
         start = time.perf_counter()
@@ -2428,8 +2421,7 @@ def dist_train(torch, pt, device, mesh):
         steps.append((loss, {k: p.grad.clone() for k, p in params.items()
                              if p.grad is not None},
                       {k: p.detach().clone() for k, p in params.items()}))
-    launches = {"megakernel_fwd": mk.LAUNCHES,
-                "megakernel_bwd": mk.BWD_LAUNCHES}
+    launches = launches_since(before, "megakernel_fwd", "megakernel_bwd")
     return steps, ms, launches
 
 
@@ -2512,8 +2504,6 @@ def dist_frame(torch, pt, device, mesh, scene, meta, cfg, eye):
                                                         padded_pixels)
     from tpu_path_tracer_torch.dist.sharding import (gather_rows, mesh_rank,
                                                      shard_scene)
-    from tpu_path_tracer_torch.kernels import megakernel as mk
-    from tpu_path_tracer_torch.kernels import traversal
 
     view = pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix
     n_pad = padded_pixels(cfg, mesh)
@@ -2522,14 +2512,13 @@ def dist_frame(torch, pt, device, mesh, scene, meta, cfg, eye):
     fb = torch.zeros((n_pad // mesh.size(), 3), device=device)
     frame(fb, 1, True, view, sharded)  # warm-up: packing, layouts
     torch.cuda.synchronize()
-    mk.LAUNCHES = 0
-    traversal.LAUNCHES = 0
+    before = counts()
     start = time.perf_counter()
     frame(fb, 3, True, view, sharded)
     torch.cuda.synchronize()
     out = {"sharded_frame_ms": (time.perf_counter() - start) * 1e3,
-           "launches": {"megakernel_fwd": mk.LAUNCHES,
-                        "bvh_closest_hit": traversal.LAUNCHES},
+           "launches": launches_since(before, "megakernel_fwd",
+                                      "bvh_closest_hit"),
            "rows": n_pad, "rows_per_rank": fb.shape[0]}
     whole = gather_rows(fb, mesh)
     if mesh_rank(mesh) == 0:
@@ -2549,7 +2538,6 @@ def dist_grads(torch, pt, device, mesh):
     from tpu_path_tracer_torch.dist import render_dist
     from tpu_path_tracer_torch.dist.sharding import (gather_rows, mesh_rank,
                                                      shard_scene)
-    from tpu_path_tracer_torch.kernels import megakernel as mk
 
     scene, meta, _ = pt.builtin.cornell_box(device=device)
     sharded = shard_scene(scene, mesh)
@@ -2575,12 +2563,11 @@ def dist_grads(torch, pt, device, mesh):
 
     grads(mesh, sharded, target)  # warm-up
     torch.cuda.synchronize()
-    mk.LAUNCHES = 0
-    mk.BWD_LAUNCHES = 0
+    before = counts()
     loss, got = grads(mesh, sharded, target)
     torch.cuda.synchronize()
-    out = {"loss": loss, "launches": {"megakernel_fwd": mk.LAUNCHES,
-                                      "megakernel_bwd": mk.BWD_LAUNCHES}}
+    out = {"loss": loss, "launches": launches_since(
+        before, "megakernel_fwd", "megakernel_bwd")}
     whole_target = gather_rows(target, mesh)
     if mesh_rank(mesh) == 0:
         ref_loss, ref = grads(None, scene, whole_target)
@@ -2900,18 +2887,18 @@ def preview_rank(pt, device, mesh):
     """Phase 20 on one rank: the preview without a terminal (it must raise
     on every rank), then the scripted preview, with the forward
     megakernel's launches around it."""
-    from tpu_path_tracer_torch.kernels import megakernel as mk
-
     try:
         scripted_preview(preview_renderer(pt, device, mesh), tty=False)
         no_tty = None
     except RuntimeError as e:
         no_tty = str(e)
     renderer = preview_renderer(pt, device, mesh)
-    mk.LAUNCHES = 0
+    before = counts()
     text, cams = scripted_preview(renderer)
     return {"no_tty": no_tty, "painted": text, "cameras": cams.tolist(),
-            "frames": len(cams) - 1, "launches": mk.LAUNCHES}
+            "frames": len(cams) - 1,
+            "launches": launches_since(before,
+                                       "megakernel_fwd")["megakernel_fwd"]}
 
 
 def preview_phase(smi):

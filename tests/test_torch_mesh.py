@@ -49,6 +49,7 @@ from tpu_path_tracer_torch.kernels import _build, intersect, traversal
 from tpu_path_tracer_torch.scene import builder as tbuilder
 from tpu_path_tracer_torch.scene import objreader as tobj
 from tpu_path_tracer_torch.scene import procedural as tproc
+from tpu_path_tracer_torch.utils import profiling
 
 from test_bvh import check_invariants, random_triangles
 
@@ -300,13 +301,13 @@ def test_closest_hit_routes_by_device(walk_case):
     """On CPU tensors the wrapper runs the plain walk, with no launch; a
     device other than CPU or CUDA has no route."""
     scene, _, (o, d, t0), (jt, ji) = walk_case
-    before = traversal.LAUNCHES
+    before = profiling.counts()["bvh_closest_hit"]
     t, i = traversal.closest_hit(torch.from_numpy(o), torch.from_numpy(d),
                                  scene.bvh, scene.triangles, T_MIN,
                                  torch.from_numpy(t0))
     np.testing.assert_array_equal(i.numpy(), ji)
     np.testing.assert_array_equal(t.numpy(), jt)
-    assert traversal.LAUNCHES == before
+    assert profiling.counts()["bvh_closest_hit"] == before
     meta_o = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="no route"):
         traversal.closest_hit(meta_o, meta_o, scene.bvh, scene.triangles,
@@ -536,10 +537,10 @@ def test_cuda_traversal_matches_plain_walk():
     scene, meta = b.build(bvh="median", device="cuda")
     o, d, t0 = (torch.from_numpy(x).cuda() for x in traversal_rays(
         4096, 4, 0.8, scene.triangles.a.cpu().numpy()))
-    before = traversal.LAUNCHES
+    before = profiling.counts()["bvh_closest_hit"]
     t, i = traversal.closest_hit(o, d, scene.bvh, scene.triangles, T_MIN, t0)
     torch.cuda.synchronize()
-    assert traversal.LAUNCHES == before + 1
+    assert profiling.counts()["bvh_closest_hit"] == before + 1
     tp, ip = traversal.bvh_closest_hit(o, d, scene.bvh, scene.triangles,
                                        T_MIN, t0, meta.max_leaf)
     np.testing.assert_array_equal(i.cpu().numpy(), ip.cpu().numpy())

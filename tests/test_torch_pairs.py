@@ -46,6 +46,7 @@ from tpu_path_tracer_torch.integrator.render import (path_trace_pixels,
 from tpu_path_tracer_torch.kernels import hit, intersect
 from tpu_path_tracer_torch.kernels import pair_sweep as ps
 from tpu_path_tracer_torch.kernels import traversal
+from tpu_path_tracer_torch.utils import profiling
 
 T_MIN = 1e-4                  # tests/test_pallas.py:384
 KERNEL_T_TOL = 1e-5           # kernel against its plain version
@@ -875,12 +876,13 @@ def test_cuda_pair_sweeps_match_plain_versions(monkeypatch):
             return emitted[-1][1]
 
         monkeypatch.setattr(ps, f"emit_{route}", recording_emit)
-        before = ps.PAIR_LAUNCHES + ps.PAIRBIN_LAUNCHES
+        before = profiling.counts()
         t, i = ENTRY_POINTS[route](o, d, scene.bvh, scene.triangles, T_MIN,
                                    t0)
         torch.cuda.synchronize()
-        assert ps.PAIR_LAUNCHES + ps.PAIRBIN_LAUNCHES == before + len(
-            rec.calls)
+        after = profiling.counts()
+        assert sum(after[k] - before[k] for k in (
+            "pair_sweep", "pairbin_sweep")) == len(rec.calls)
         for args, (tk, idx) in rec.calls:
             tp, ip = plain(*args)
             np.testing.assert_array_equal(idx.cpu().numpy(),

@@ -28,6 +28,7 @@ import tpu_path_tracer_torch as pt
 from tpu_path_tracer_torch.core import rng as trng
 from tpu_path_tracer_torch.integrator.render import pixel_grid
 from tpu_path_tracer_torch.kernels import megakernel as mk
+from tpu_path_tracer_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
@@ -167,9 +168,9 @@ def _frame(use_megakernel, scene_fn=pt.builtin.reference_scene):
 def test_megakernel_route_on_cpu_is_the_wavefront():
     """On CPU tensors the megakernel route runs its plain version: the
     same image bit for bit, and no kernel launch."""
-    before = mk.LAUNCHES
+    before = profiling.counts()["megakernel_fwd"]
     np.testing.assert_array_equal(_frame(True).numpy(), _frame(False).numpy())
-    assert mk.LAUNCHES == before
+    assert profiling.counts()["megakernel_fwd"] == before
 
 
 def test_megakernel_wrapper_has_no_fallback(monkeypatch):
@@ -357,11 +358,11 @@ def test_cuda_megakernel_matches_plain_version(cuda_device):
     view = torch.as_tensor(pt.Camera(eye=[0.5, 0.0, 2.5]).view_matrix,
                            device=cuda_device)
     state = trng.seed(pix, 3)
-    before = mk.LAUNCHES
+    before = profiling.counts()["megakernel_fwd"]
     got = mk.path_trace_pixels_megakernel(state, view, px, py, scene, meta,
                                           cfg)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES == before + 1
+    assert profiling.counts()["megakernel_fwd"] == before + 1
     ref = mk.path_trace_pixels_reference(state, view, px, py, scene, meta,
                                          cfg)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),

@@ -45,6 +45,7 @@ from tpu_path_tracer_torch.integrator.render import (path_trace_pixels as
                                                      tptp, pixel_grid)
 from tpu_path_tracer_torch.kernels import megakernel as mk
 from tpu_path_tracer_torch.scene.objreader import save_obj
+from tpu_path_tracer_torch.utils import profiling
 
 GRAD_RTOL = 2e-3   # tests/test_pallas.py:160
 LOSS_RTOL = 1e-6   # tests/test_pallas.py:183
@@ -207,14 +208,16 @@ def test_megakernel_route_on_cpu_gives_the_wavefront_gradients():
     """On CPU tensors ``use_megakernel=True`` runs the plain version, the
     wavefront, with autograd on: the same loss and gradients as the
     wavefront route, and no kernel launch."""
-    before = (mk.LAUNCHES, mk.BWD_LAUNCHES)
+    before = profiling.counts()
     l_mk, g_mk = _cornell_grads(use_megakernel=True)
     l_wf, g_wf = _cornell_grads(use_megakernel=False)
     assert l_mk == l_wf
     for k in g_wf:
         np.testing.assert_array_equal(g_mk[k], g_wf[k], err_msg=k)
     assert np.abs(g_mk["emission"]).max() > 0
-    assert (mk.LAUNCHES, mk.BWD_LAUNCHES) == before
+    after = profiling.counts()
+    for kernel in ("megakernel_fwd", "megakernel_bwd"):
+        assert after[kernel] == before[kernel]
 
 
 def test_unroll_budget_error_and_vjp_supported():
@@ -808,10 +811,10 @@ def test_cuda_backward_matches_plain_version(cuda_device):
                       tparams.apply_params(scene, params), meta,
                       cfg.replace(use_megakernel=use_mk))
         loss = torch.mean(rad ** 2)
-        before = mk.BWD_LAUNCHES
+        before = profiling.counts()["megakernel_bwd"]
         grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
-        assert mk.BWD_LAUNCHES == before + int(use_mk)
+        assert profiling.counts()["megakernel_bwd"] == before + int(use_mk)
         results.append((float(loss), {k: g.cpu().numpy()
                                       for k, g in zip(params, grads)}))
     (l_k, g_k), (l_p, g_p) = results

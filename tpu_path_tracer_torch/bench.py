@@ -162,22 +162,15 @@ def _chain_run(step, init, device):
     return run
 
 
-def _launch_counts():
-    from .kernels import megakernel as mk
-    from .kernels import traversal
-
-    return {"megakernel_fwd": mk.LAUNCHES, "megakernel_bwd": mk.BWD_LAUNCHES,
-            "bvh_closest_hit": traversal.LAUNCHES,
-            "bvh_pack": traversal.PACK_LAUNCHES}
-
-
 def _launches(fn, device, kernels):
     """Run ``fn`` once; the launches of each of ``kernels`` it made.  On
     the card every one of them must have launched."""
-    before = _launch_counts()
+    from .utils import profiling
+
+    before = profiling.counts()
     out = fn()
     _sync(device)
-    after = _launch_counts()
+    after = profiling.counts()
     counts = {k: after[k] - before[k] for k in kernels}
     if device.type == "cuda" and not all(counts.values()):
         raise RuntimeError(f"the kernels of this row did not all launch: "

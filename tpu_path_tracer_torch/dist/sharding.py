@@ -25,6 +25,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils import profiling
+
 RAY_AXIS = "rays"
 
 
@@ -150,7 +152,10 @@ def gather_rows(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """Every rank's ``x`` concatenated along rows, in rank order, on every
     rank (the chunks of a ray-sharded tensor make the global one)."""
     group = mesh.get_group()
-    src = x.cpu() if x.is_cuda and dist.get_backend(group) == "gloo" else x
+    src = x
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        profiling.count("host_syncs")
+        src = x.cpu()
     parts = [torch.empty_like(src) for _ in range(mesh.size())]
     dist.all_gather(parts, src.contiguous(), group=group)
     return torch.cat(parts).to(x.device)

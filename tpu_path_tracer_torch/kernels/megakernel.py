@@ -37,6 +37,7 @@ import torch
 
 from ..core.config import PI, RenderConfig
 from ..core.types import SceneData, SceneMeta
+from ..utils import profiling
 
 # Scene-table columns (megakernel.py:148-161).
 # Sphere row: cx cy cz r | col3 spec3 emi3 sstr rough eta mtype  (17)
@@ -58,12 +59,6 @@ MAX_SMEM_BYTES = 232448
 # keeps one record per bounce in scratch and has no such limit, but keeps
 # the JAX routing until lifting it is measured (ROADMAP).
 MAX_UNROLL_BOUNCES = 64
-
-# Launches of the CUDA kernels in this process: the forward, the backward
-# and the backward's fold of its block rows.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-FOLD_LAUNCHES = 0
 
 # Words per bounce record of the backward's scratch (csrc/megakernel_bwd.cu).
 REC_FIELDS = 14
@@ -113,6 +108,7 @@ def pack_tables(scene: SceneData):
     package pads one zero row for its TPU block shapes).  Without quads the
     light row is zeros.  Differentiable torch ops, so table gradients would
     reach the scene."""
+    profiling.count("table_packs")
     device = scene.quads.q.device
 
     def table(count, cols, parts):
@@ -278,19 +274,19 @@ def _prepare(rand_state, px, py, tables, scene: SceneData):
 def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
     """Launch the forward kernel on the current stream; returns
     ``[N, 3]``."""
-    global LAUNCHES
     from . import _build
 
-    n = px32.shape[0]
-    out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
-    stream = torch.cuda.current_stream(px32.device).cuda_stream
-    fwd = _bind(_build.load())[0]
-    err = fwd(flat.data_ptr(), *counts, state.data_ptr(), px32.data_ptr(),
-              py32.data_ptr(), out.data_ptr(),
-              *_scalar_args(scene, meta, cfg, n), stream)
+    with profiling.span("megakernel.launch"):
+        n = px32.shape[0]
+        out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
+        stream = torch.cuda.current_stream(px32.device).cuda_stream
+        fwd = _bind(_build.load())[0]
+        err = fwd(flat.data_ptr(), *counts, state.data_ptr(),
+                  px32.data_ptr(), py32.data_ptr(), out.data_ptr(),
+                  *_scalar_args(scene, meta, cfg, n), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    profiling.count("megakernel_fwd")
     return out
 
 
@@ -298,7 +294,6 @@ def _launch_bwd_rows(flat, counts, state, px32, py32, grad_out, scene,
                      meta, cfg):
     """Launch the backward kernel on the current stream; returns each
     block's table gradients, ``[blocks, tables]``, for :func:`fold_rows`."""
-    global BWD_LAUNCHES
     from . import _build
 
     n = px32.shape[0]
@@ -319,7 +314,7 @@ def _launch_bwd_rows(flat, counts, state, px32, py32, grad_out, scene,
     if err != 0:
         raise RuntimeError(f"megakernel backward launch failed: CUDA error "
                            f"{err}")
-    BWD_LAUNCHES += 1
+    profiling.count("megakernel_bwd")
     return rows
 
 
@@ -344,7 +339,6 @@ def fold_rows(rows):
     """The sum over the rows of ``rows`` ``[blocks, n]`` (float32) in a
     fixed order, the backward's sum over its blocks: CPU tensors take the
     plain version, CUDA tensors launch the fold kernel."""
-    global FOLD_LAUNCHES
     if rows.device.type == "cpu":
         return fold_rows_plain(rows)
     if rows.device.type != "cuda":
@@ -360,7 +354,7 @@ def fold_rows(rows):
     err = fold(rows.data_ptr(), blocks, n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"backward fold launch failed: CUDA error {err}")
-    FOLD_LAUNCHES += 1
+    profiling.count("megakernel_bwd_fold")
     return out
 
 
@@ -411,9 +405,19 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
                                            scene, meta, cfg)
     if device.type != "cuda":
         raise ValueError(f"megakernel: no route for device {device}")
-    tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
-    flat, counts, state, px32, py32 = _prepare(rand_state, px, py, tables,
-                                               scene)
+    return _kernel_route(rand_state, view_matrix, px, py, scene, meta, cfg)
+
+
+def _kernel_route(rand_state, view_matrix, px, py, scene: SceneData,
+                  meta: SceneMeta, cfg: RenderConfig):
+    """The CUDA route of :func:`path_trace_pixels_megakernel`: pack the
+    scene's tables, prepare the kernels' buffers, and apply the autograd
+    node that launches them."""
+    with profiling.span("megakernel.pack_tables"):
+        tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
+    with profiling.span("megakernel.prepare"):
+        flat, counts, state, px32, py32 = _prepare(rand_state, px, py,
+                                                   tables, scene)
     launch = {
         "fwd": lambda: _launch_fwd(flat, counts, state, px32, py32, scene,
                                    meta, cfg),

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from ..core import vecmath as vm
 from ..core.types import FlatBVH, Triangles
+from ..utils import profiling
 from .intersect import DET_EPS, INF
 
 TRI_CHUNK = 128    # triangles per chunk, and pair rows per segment
@@ -74,10 +75,6 @@ PLAIN_BLOCK = 256
 # Rays per histogram cell of the emission on the card (csrc/pair_emit.cu
 # EMIT_BLOCK).
 EMIT_BLOCK = 256
-
-# Launches of the CUDA kernels in this process.
-PAIR_LAUNCHES = 0
-PAIRBIN_LAUNCHES = 0
 
 # Inside this module a slab or a triangle test that fails reads _NONE, and
 # any entry or t below _BIG is real (INF, the callers' "no hit", is smaller
@@ -347,7 +344,6 @@ def pair_sweep(pair_dm, pair_o1, seg_cid, table, t_min: float):
     """The pair sweep (arguments and result as :func:`pair_sweep_plain`):
     CUDA tensors launch ``csrc/pair_sweep.cu`` on the current stream, CPU
     tensors run the plain version, any other device raises."""
-    global PAIR_LAUNCHES
     device = pair_dm.device
     if device.type == "cpu":
         return pair_sweep_plain(pair_dm, pair_o1, seg_cid, table, t_min)
@@ -365,7 +361,7 @@ def pair_sweep(pair_dm, pair_o1, seg_cid, table, t_min: float):
     if err != 0:
         raise RuntimeError(f"pair sweep kernel launch failed: CUDA error "
                            f"{err}")
-    PAIR_LAUNCHES += 1
+    profiling.count("pair_sweep")
     return t_out, i_out
 
 
@@ -374,7 +370,6 @@ def pairbin_sweep(pair_dm, pair_o1, seg_bid, boxes, table, t_min: float):
     :func:`pairbin_sweep_plain`): CUDA tensors launch
     ``csrc/pair_sweep.cu`` on the current stream, CPU tensors run the plain
     version, any other device raises."""
-    global PAIRBIN_LAUNCHES
     device = pair_dm.device
     if device.type == "cpu":
         return pairbin_sweep_plain(pair_dm, pair_o1, seg_bid, boxes, table,
@@ -394,7 +389,7 @@ def pairbin_sweep(pair_dm, pair_o1, seg_bid, boxes, table, t_min: float):
     if err != 0:
         raise RuntimeError(f"pair-bin sweep kernel launch failed: CUDA error "
                            f"{err}")
-    PAIRBIN_LAUNCHES += 1
+    profiling.count("pairbin_sweep")
     return t_out, i_out
 
 
@@ -554,11 +549,7 @@ def pair_advance_plain(rows: PairRows, t_row, i_row, t_best, i_best, taken,
 
 
 # The emission on the card: csrc/pair_emit.cu.  Each wrapper counts one
-# launch per call that launches its kernels.
-PAIRBIN_EMIT_LAUNCHES = 0
-PAIR_EMIT_LAUNCHES = 0
-PAIRBIN_BEST_LAUNCHES = 0
-PAIR_ADVANCE_LAUNCHES = 0
+# launch, under its own name, per call that launches its kernels.
 
 
 class _EmitLib:
@@ -616,6 +607,7 @@ def _lay_out(lib: _EmitLib, hist, n_keys: int, n_blocks: int, device,
                               key_start.data_ptr(), shift.data_ptr(),
                               key_count.data_ptr(), sizes.data_ptr(),
                               stream), "pair layout kernel")
+    profiling.count("host_syncs")
     n_rows, n_pairs = sizes.tolist()
     if n_pairs == 0:
         return _no_rows(device)
@@ -719,11 +711,10 @@ def emit_pairbin(o, d, cap, bmin, bmax) -> PairRows:
     :func:`emit_pairbin_plain`; ``o``, ``d``, ``cap`` float32 and
     contiguous): CUDA tensors launch ``csrc/pair_emit.cu``, CPU tensors run
     the plain version, any other device raises."""
-    global PAIRBIN_EMIT_LAUNCHES
     if not _on_card(o, "emit_pairbin"):
         return emit_pairbin_plain(o, d, cap, bmin, bmax)
     rows = _emit_pairbin_on(_card_lib(), o, d, cap, bmin, bmax)
-    PAIRBIN_EMIT_LAUNCHES += 1
+    profiling.count("emit_pairbin")
     return rows
 
 
@@ -733,20 +724,18 @@ def emit_pair(o, d, t_best, taken, counts, start, chunk, entry,
     :func:`emit_pair_plain`; taken, counts, start and chunk int32, the rest
     float32, all contiguous): CUDA tensors launch ``csrc/pair_emit.cu``, CPU
     tensors run the plain version, any other device raises."""
-    global PAIR_EMIT_LAUNCHES
     if not _on_card(o, "emit_pair"):
         return emit_pair_plain(o, d, t_best, taken, counts, start, chunk,
                                entry, n_chunks)
     rows = _emit_pair_on(_card_lib(), o, d, t_best, taken, counts, start,
                          chunk, entry, n_chunks)
-    PAIR_EMIT_LAUNCHES += 1
+    profiling.count("emit_pair")
     return rows
 
 
 def pairbin_best(rows: PairRows, t_row, i_row, t_best0):
     """The pair-bin reduction (as :func:`pairbin_best_plain`): CUDA tensors
     launch ``csrc/pair_emit.cu``, CPU tensors run the plain version."""
-    global PAIRBIN_BEST_LAUNCHES
     if not _on_card(t_row, "pairbin_best"):
         return pairbin_best_plain(rows, t_row, i_row, t_best0)
     n = t_best0.shape[0]
@@ -754,7 +743,7 @@ def pairbin_best(rows: PairRows, t_row, i_row, t_best0):
     i_out = torch.empty((n,), dtype=torch.int64, device=t_row.device)
     _best_on(_card_lib(), rows, t_row, i_row, n, False, t_best0=t_best0,
              t_out=t_out, i_out=i_out)
-    PAIRBIN_BEST_LAUNCHES += 1
+    profiling.count("pairbin_best")
     return t_out, i_out
 
 
@@ -763,7 +752,6 @@ def pair_advance(rows: PairRows, t_row, i_row, t_best, i_best, taken, counts,
     """A pair round's reduction, in place (as :func:`pair_advance_plain`):
     CUDA tensors launch ``csrc/pair_emit.cu``, CPU tensors run the plain
     version."""
-    global PAIR_ADVANCE_LAUNCHES
     if not _on_card(t_row, "pair_advance"):
         pair_advance_plain(rows, t_row, i_row, t_best, i_best, taken, counts,
                            start, entry)
@@ -771,7 +759,7 @@ def pair_advance(rows: PairRows, t_row, i_row, t_best, i_best, taken, counts,
     _best_on(_card_lib(), rows, t_row, i_row, t_best.shape[0], True,
              t_out=t_best, i_out=i_best, counts=counts, start=start,
              entry=entry, taken=taken)
-    PAIR_ADVANCE_LAUNCHES += 1
+    profiling.count("pair_advance")
 
 
 def _all_miss(n: int, device):

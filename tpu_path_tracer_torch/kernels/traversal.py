@@ -34,12 +34,8 @@ import ctypes
 import torch
 
 from ..core.types import FlatBVH, Triangles
+from ..utils import profiling
 from . import intersect, pair_sweep
-
-# Launches of the CUDA traversal kernel and of its packing kernel in this
-# process.
-LAUNCHES = 0
-PACK_LAUNCHES = 0
 
 # The route of closest_hit: None is the BVH walk (csrc/traversal.cu on the
 # card); "pairbin" and "pair" send BVH scenes through
@@ -179,6 +175,7 @@ def _layout(bvh: FlatBVH, tris: Triangles):
     # One read of the device: the tree's depth, its largest leaf and its
     # interior nodes.
     zero = torch.zeros((), dtype=torch.int64, device=bvh.miss.device)
+    profiling.count("host_syncs")
     depth, leaf, n_inner = torch.stack([
         tree_depth(bvh), bvh.prim_count.max() if n_nodes else zero,
         (bvh.right >= 0).sum()]).tolist()
@@ -240,7 +237,6 @@ def pack_bvh(bvh: FlatBVH, tris: Triangles):
     step: on CUDA tensors by ``csrc/traversal.cu``'s packing kernel, on CPU
     tensors by its plain version (:func:`pack_bvh_plain`).  Raises
     ValueError for a tree the kernel cannot take (:func:`_layout`)."""
-    global PACK_LAUNCHES
     from . import _build
 
     device = bvh.mins.device
@@ -275,7 +271,7 @@ def pack_bvh(bvh: FlatBVH, tris: Triangles):
     if err != 0:
         raise RuntimeError(f"BVH packing kernel launch failed: CUDA error "
                            f"{err}")
-    PACK_LAUNCHES += 1
+    profiling.count("bvh_pack")
     return rows, tri_rows
 
 
@@ -292,7 +288,6 @@ def _launch(origin, direction, bvh: FlatBVH, tris: Triangles, t_min: float,
             t_best0):
     """Launch ``csrc/traversal.cu`` on the current stream; returns
     (t [N] f32, tri_index [N] int64)."""
-    global LAUNCHES
     from . import _build
 
     device = origin.device
@@ -320,7 +315,7 @@ def _launch(origin, direction, bvh: FlatBVH, tris: Triangles, t_min: float,
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    profiling.count("bvh_closest_hit")
     return t_out, idx_out.to(torch.int64)
 
 

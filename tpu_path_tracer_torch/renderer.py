@@ -40,8 +40,8 @@ from .dist.sharding import (gather_rows, mesh_rank, mesh_size, rank_device,
                             ray_sharding, shard_scene)
 from .integrator import film
 from .utils import checkpoint as ckpt
+from .utils import profiling
 from .utils.image import write_png
-from .utils.profiling import FrameStats
 
 
 class Renderer:
@@ -59,7 +59,7 @@ class Renderer:
         self.max_fps = max_fps          # renderParams.maxFPS, index.js:30
         self.log_count_of_samples = log_count_of_samples
         self.log_performance = log_performance
-        self.stats = FrameStats()
+        self.stats = profiling.FrameStats()
         self.frame_num = 0
         if mesh is not None:
             self.device = rank_device(mesh)
@@ -76,17 +76,19 @@ class Renderer:
     def step(self, reset: Optional[bool] = None):
         """Advance one progressive frame.  ``reset`` defaults to the camera
         motion flags, like renderer.js:174-180."""
-        if reset is None:
-            reset = self.camera.consume_motion_flags()
-        if reset:
-            self.frame_num = 0
-        self.frame_num += 1
-        make_sharded_frame_fn(self.mesh, self.meta, self.cfg)(
-            self.framebuffer, self.frame_num, bool(reset),
-            self.camera.view_matrix, self.scene)
-        if self.log_count_of_samples and self._root:  # renderer.js:169-170
-            print(f"Total Samples: "
-                  f"{self.frame_num * self.cfg.samples_per_pixel}")
+        profiling.count("frames")
+        with profiling.span("renderer.step"):
+            if reset is None:
+                reset = self.camera.consume_motion_flags()
+            if reset:
+                self.frame_num = 0
+            self.frame_num += 1
+            make_sharded_frame_fn(self.mesh, self.meta, self.cfg)(
+                self.framebuffer, self.frame_num, bool(reset),
+                self.camera.view_matrix, self.scene)
+            if self.log_count_of_samples and self._root:  # renderer.js:169-170
+                print(f"Total Samples: "
+                      f"{self.frame_num * self.cfg.samples_per_pixel}")
         return self.framebuffer
 
     def render_animation(self, num_frames: int,
@@ -101,6 +103,7 @@ class Renderer:
             self.step()
             if ((self.show_fps or self.log_performance)
                     and self.device.type == "cuda"):
+                profiling.count("host_syncs")
                 torch.cuda.synchronize(self.device)
             self.stats.end()
             if (self.log_performance and self._root
@@ -133,10 +136,15 @@ class Renderer:
     def display(self) -> np.ndarray:
         """Tone-mapped uint8 image [H, W, 3] (fragment.js:22-36); with a
         mesh, of the gathered framebuffer's first W*H rows."""
-        n = self.cfg.width * self.cfg.height
-        img = film.to_uint8(film.display_transform(
-            self._global_framebuffer()[:n], self.frame_num))
-        return img.cpu().numpy().reshape(self.cfg.height, self.cfg.width, 3)
+        with profiling.span("renderer.display"):
+            n = self.cfg.width * self.cfg.height
+            img = film.to_uint8(film.display_transform(
+                self._global_framebuffer()[:n], self.frame_num))
+            # The copy waits for the frame on the device.
+            profiling.count("host_syncs")
+            with profiling.span("renderer.display.copy"):
+                img = img.cpu()
+        return img.numpy().reshape(self.cfg.height, self.cfg.width, 3)
 
     def save_png(self, path: str):
         img = self.display()

@@ -1,4 +1,5 @@
-"""Frame statistics and device traces (``tpu_path_tracer.utils.profiling``).
+"""Frame statistics, device traces, and the program's spans and counters
+(``tpu_path_tracer.utils.profiling``).
 
 :class:`FrameStats` is the JAX package's rolling frame-time and rays-per-
 second meter (the reference's stats.js panel and its 100-frame log,
@@ -7,15 +8,25 @@ second meter (the reference's stats.js panel and its 100-frame log,
 ``jax.profiler`` one, and :func:`profile_device_ms` sums the device time of
 a call by kernel.  The JAX ``cost_summary`` reads XLA's cost model; the
 port's kernel bounds are counted in ``utils.bounds`` instead.
+
+:func:`span` marks a layer boundary of the frame's path and :func:`count`
+adds to a named counter.  Spans are recorded only while a
+``torch.profiler`` runs or inside :func:`recording`; each then sits in the
+profile as a ``record_function`` annotation, on the kernels' clock, and in
+an in-memory record that :func:`spans` returns.  Counters are always on.
 """
 
 from __future__ import annotations
 
+import array
 import contextlib
 import os
 import time
-from collections import deque
-from typing import Optional
+from collections import Counter, deque
+from typing import NamedTuple, Optional
+
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 
 class FrameStats:
@@ -60,7 +71,6 @@ def device_trace(log_dir: str = "tpt_trace"):
     """``torch.profiler`` trace context (CPU, and CUDA where there is a
     card): writes ``trace.json`` into ``log_dir`` on exit, a Chrome trace
     for Perfetto or chrome://tracing.  Yields the directory."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -98,7 +108,6 @@ def profile_device_ms(fn, calls, names):
     substrings of kernel names; "all" sums every kernel.  Returns that and
     the profile's kernel rows; each group reads "not measured" where the
     profiler saw no device time (the CPU, or a card it cannot trace)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -122,3 +131,101 @@ def profile_device_ms(fn, calls, names):
            for k, subs in names.items()}
     out["all"] = sum(device_us(e) for e in rows) / 1e3 / calls
     return out, rows
+
+
+# The record of spans is bounded: past MAX_SPANS a span still annotates the
+# profile, and counts as "spans_dropped" instead of being kept.
+MAX_SPANS = 1 << 20
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.perf_counter_ns() before entering the annotation
+    end_ns: int    # and before leaving it
+    parent: int    # index in spans() of the enclosing span; -1 for none
+    frame: int     # the "frames" count when it began: its frame's number
+
+
+_recording = False
+_counts = Counter()
+_names = []
+_starts, _ends = array.array("q"), array.array("q")
+_parents, _frames = array.array("q"), array.array("q")
+_open = []  # indices of the spans entered and not yet left
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "note", "index")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.index = len(_names)
+        if self.index < MAX_SPANS:
+            _names.append(self.name)
+            _parents.append(_open[-1] if _open else -1)
+            _frames.append(_counts["frames"])
+            _ends.append(-1)
+            _starts.append(time.perf_counter_ns())
+        else:
+            self.index = -1
+            _counts["spans_dropped"] += 1
+        _open.append(self.index)
+        self.note = _torch_profiler.record_function(self.name)
+        self.note.__enter__()
+
+    def __exit__(self, *exc):
+        if self.index >= 0:
+            _ends[self.index] = time.perf_counter_ns()
+        _open.pop()
+        return self.note.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager that marks ``name``, a layer boundary of the
+    program, while recording is on (a ``torch.profiler`` runs, or inside
+    :func:`recording`).  Off, it is a shared null context: no clock read,
+    no annotation, nothing kept."""
+    if _recording or _torch_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the context without a profiler."""
+    global _recording
+    before, _recording = _recording, True
+    try:
+        yield
+    finally:
+        _recording = before
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name``.  The program counts "frames"
+    (``Renderer.step``), "host_syncs" (each place it makes the host wait
+    for the device), "table_packs" (``megakernel.pack_tables``) and the
+    launches of each CUDA kernel under the kernel's name."""
+    _counts[name] += n
+
+
+def counts() -> Counter:
+    """A copy of the counters; a counter never added to reads 0."""
+    return Counter(_counts)
+
+
+def spans() -> list:
+    """The recorded spans, in the order they began."""
+    return [Span(*r) for r in zip(_names, _starts, _ends, _parents,
+                                  _frames)]
+
+
+def reset():
+    """Clear the spans and the counters (outside any span)."""
+    if _open:
+        raise RuntimeError("profiling.reset() inside a span")
+    _counts.clear()
+    del _names[:], _starts[:], _ends[:], _parents[:], _frames[:]
