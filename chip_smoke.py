@@ -18,7 +18,12 @@ Phases, each printed on its own line; any failure exits non-zero:
 4. the megakernel's progressive render against the JAX package's committed
    goldens (``tests/goldens``), read as numpy arrays;
 5. the main path: ``Renderer.render_animation(16)`` of the reference scene
-   at 512x512 through the megakernel, with its launch count;
+   at 512x512 through the megakernel, with its launch count; then
+   table_cache: frames of the Cornell box and of the reference scene
+   through the wrapper's cache of packed tables (a pack on the first frame,
+   a reuse on each other, the camera moved once, then an edit in place of
+   the emission that repacks) against the same frames with a repack forced
+   on every one, the framebuffers bit for bit;
 6. frame times of the kernel and of the plain version at 512x512, and a
    torch.profiler breakdown of the main path's device time;
 7. grad_vs_plain: the CUDA backward kernel against autograd of the
@@ -520,6 +525,64 @@ def main_path_phase(torch, pt, device, frames=16):
     check(launches == frames,
           f"megakernel launched {launches} times for {frames} frames")
     return launches, seconds * 1e3 / frames
+
+
+TABLE_CACHE_FRAMES = 6
+
+
+def cached_frames(torch, pt, device, make, eye, cfg, repack):
+    """The framebuffer after each of TABLE_CACHE_FRAMES frames of ``make``'s
+    scene through the megakernel wrapper, the camera moved before frame 3
+    and the emission doubled in place before frame 5; with ``repack`` the
+    wrapper's cache is emptied before every frame.  Returns them and the
+    packs and reuses counted."""
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    scene, meta, _ = getattr(pt.builtin, make)(device=device)
+    renderer = pt.Renderer(scene, meta, cfg, camera=pt.Camera(eye=eye))
+    mk.clear_table_cache()
+    before = counts()
+    fbs = []
+    for f in range(TABLE_CACHE_FRAMES):
+        if f == 2:
+            renderer.camera.set_camera(eye=[e + 0.1 for e in eye])
+        if f == 4:
+            scene.materials.emission.mul_(2.0)
+        if repack:
+            mk.clear_table_cache()
+        fbs.append(renderer.step().clone())
+    torch.cuda.synchronize()
+    mk.clear_table_cache()
+    return fbs, launches_since(before, "table_packs", "table_cache_hits")
+
+
+def table_cache_phase(torch, pt, device):
+    """Frames through the wrapper's cache of packed tables against the same
+    frames repacked every frame, bit for bit, with the packs counted."""
+    for make, eye, cfg in (
+            ("cornell_box", [0.0, 0.0, 3.2],
+             pt.RenderConfig(width=512, height=512, max_bounces=4,
+                             importance_sampling=True, use_megakernel=True)),
+            ("reference_scene", [0.5, 0.0, 2.5],
+             pt.RenderConfig(width=900, height=600, max_bounces=100,
+                             use_megakernel=True))):
+        cached, packs = cached_frames(torch, pt, device, make, eye, cfg,
+                                      False)
+        fresh, repacks = cached_frames(torch, pt, device, make, eye, cfg,
+                                       True)
+        differ = [f for f, (a, b) in enumerate(zip(cached, fresh))
+                  if not torch.equal(a.view(torch.int32),
+                                     b.view(torch.int32))]
+        phase("table_cache", scene=make, frames=TABLE_CACHE_FRAMES,
+              cached=packs, repacked=repacks, frames_differing=differ)
+        check(not differ, f"{make}: cached frames {differ} differ from "
+                          f"repacked ones")
+        check(packs == {"table_packs": 2,
+                        "table_cache_hits": TABLE_CACHE_FRAMES - 2},
+              f"{make}: the cache counted {packs}")
+        check(repacks == {"table_packs": TABLE_CACHE_FRAMES,
+                          "table_cache_hits": 0},
+              f"{make}: forced repacks counted {repacks}")
 
 
 def time_frames(torch, pt, device, scene, meta, cfg, view, frames):
@@ -2955,6 +3018,7 @@ def run():
     max_err = compare_phase(torch, pt, device)
     golden_phase(torch, pt, device)
     launches, frame_ms = main_path_phase(torch, pt, device)
+    table_cache_phase(torch, pt, device)
     times = timing_phase(torch, pt, device, smi)
     fwd_device_ms = profile_phase(torch, pt, device, frame_ms)
     grad_abs, grad_rel = grad_phase(torch, pt, device)

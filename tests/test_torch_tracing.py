@@ -5,10 +5,10 @@ the record's cap, and the counters a frame adds.
 
 The megakernel wrapper's spans sit on its CUDA route; here that route runs
 on CPU tensors with the launch's ctypes call replaced by one that writes
-zeros (``kernel_route``), so everything but the kernel runs as on the card.
+zeros (the ``kernel_route`` fixture of ``torch_kernel_route.py``), so
+everything but the kernel runs as on the card.
 """
 
-import ctypes
 import statistics
 import types
 
@@ -17,9 +17,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import tpu_path_tracer_torch as pt
-from tpu_path_tracer_torch.kernels import _build
-from tpu_path_tracer_torch.kernels import megakernel as mk
 from tpu_path_tracer_torch.utils import profiling
+
+from torch_kernel_route import kernel_route  # noqa: F401
 
 FRAME_SPANS = ("renderer.step", "megakernel.pack_tables",
                "megakernel.prepare", "megakernel.launch", "renderer.display",
@@ -42,22 +42,6 @@ def clean_record():
     profiling.reset()
     yield
     profiling.reset()
-
-
-@pytest.fixture
-def kernel_route(monkeypatch):
-    """The megakernel wrapper's CUDA route on CPU tensors, its kernel a
-    stand-in that writes zero radiance."""
-    def launch(*args):
-        out, n = args[7], args[8]
-        ctypes.memset(out, 0, 12 * n)
-        return 0
-
-    monkeypatch.setattr(mk, "path_trace_pixels_reference", mk._kernel_route)
-    monkeypatch.setattr(_build, "load", lambda: None)
-    monkeypatch.setattr(mk, "_bind", lambda lib: (launch, None, None))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=0))
 
 
 def _renderer(use_megakernel=True):
@@ -168,13 +152,15 @@ def test_the_record_is_capped(kernel_route, monkeypatch):
 @pytest.mark.parametrize("route", ["kernel", "wavefront"])
 def test_counters_per_frame(route, request):
     """Each ``Renderer.step`` + ``display`` counts one frame and one host
-    sync (the display's copy); the kernel route packs the tables once and
-    launches the forward kernel once a frame, the wavefront neither."""
+    sync (the display's copy); the kernel route launches the forward kernel
+    once a frame and packs the static scene's tables on the first frame
+    only, reusing them after; the wavefront does none of these."""
     if route == "kernel":
         request.getfixturevalue("kernel_route")
     r = _renderer(use_megakernel=route == "kernel")
     _frames(r, 3)
     c = profiling.counts()
-    per_frame = 1 if route == "kernel" else 0
+    kernel = route == "kernel"
     assert (c["frames"], c["host_syncs"]) == (3, 3)
-    assert (c["table_packs"], c["megakernel_fwd"]) == (3 * per_frame,) * 2
+    assert c["megakernel_fwd"] == 3 * kernel
+    assert (c["table_packs"], c["table_cache_hits"]) == (kernel, 2 * kernel)

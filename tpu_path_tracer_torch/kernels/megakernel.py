@@ -17,6 +17,12 @@ shading and Russian roulette, so ray state never leaves registers.
   (:func:`fold_rows`) folds the rows in a fixed order, so the gradients
   have the same bits every run, as the JAX kernel's sequential grid gives.
 
+Without gradients, the CUDA route packs a scene's tables once and reuses
+the flat buffer while the scene's tensors are unchanged
+(:func:`_scene_tables`); each frame adds only the view matrix.  A write
+that leaves a tensor's version counter as it was goes unseen: call
+:func:`clear_table_cache` after one.
+
 Their contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw
 the same PCG stream and bounce algebra as the wavefront integrator, which
 is therefore the plain version of both (:func:`path_trace_pixels_reference`
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import operator
 
 import numpy as np
 import torch
@@ -183,6 +190,60 @@ def vjp_reference(rand_state, view_matrix, px, py, scene: SceneData,
                                            scene, meta, cfg)
     return torch.autograd.grad(radiance, list(inputs), grad_radiance,
                                allow_unused=True)
+
+
+# The last scene whose tables were packed without gradients, per device:
+# {device: (stream and light index, the scene's tensors, their stamps,
+# the flat tables)}.  A buffer here is never written in place.
+_packed = {}
+
+
+def clear_table_cache():
+    """Forget every scene's packed tables, so the next frame of each packs
+    anew.  Needed only after a write to a scene tensor that leaves its
+    version counter as it was: through ``.data``, a numpy view or a raw
+    pointer, or a fused optimizer step (``Adam(fused=True)``) on parameters
+    that the scene holds detached (``p.detach()``)."""
+    _packed.clear()
+
+
+def _stamps(scene: SceneData):
+    """The tensors ``pack_tables`` reads from ``scene``, and each one's
+    version counter and storage; (None, None) where a tensor keeps no
+    version counter (an inference tensor) or may be written without
+    bumping it: a tensor that requires grad is a parameter, and a fused
+    optimizer step (``Adam(fused=True)``) leaves its version as it was.
+    Under ``no_grad`` a preview renders such parameters without a graph,
+    so the route's own test for gradients does not answer this one."""
+    tensors = [t for g in (scene.materials, scene.spheres, scene.quads,
+                           scene.triangles) for t in g]
+    if any(t.is_inference() or t.requires_grad for t in tensors):
+        return None, None
+    return tensors, [(t._version, t.data_ptr()) for t in tensors]
+
+
+def _scene_tables(scene: SceneData, device):
+    """The scene's tables ``(sph, quad, tri, light)`` flattened into one
+    float32 buffer on ``device``.  Packed on a miss, and reused while the
+    scene holds the same tensor objects at the same versions and storage,
+    with the same light, on the same stream: an edit in place bumps a
+    tensor's version and repacks, and so does a new scene with equal
+    values."""
+    key = (torch.cuda.current_stream(device).cuda_stream, scene.light_index)
+    tensors, stamps = _stamps(scene)
+    held = _packed.get(device)
+    if (held is not None and stamps is not None and held[0] == key
+            and held[2] == stamps and all(map(operator.is_, held[1],
+                                              tensors))):
+        profiling.count("table_cache_hits")
+        return held[3]
+    flat = torch.cat([t.reshape(-1) for t in pack_tables(scene)])
+    flat = flat.to(device=device, dtype=torch.float32)
+    if stamps is None:
+        _packed.pop(device, None)
+    else:
+        _packed[device] = (key, tensors, stamps, flat)
+    return flat
 
 
 def _wants_grad(scene: SceneData, view_matrix) -> bool:
@@ -396,11 +457,17 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
     CPU tensors run the plain version, the wavefront, which autograd
     differentiates; CUDA tensors launch the forward kernel, and the
     backward kernel when gradients are taken, or raise.  Asking for
-    gradients of a configuration over the unroll budget raises on both."""
-    if _wants_grad(scene, view_matrix):
-        _check_unroll_budget(cfg)
+    gradients of a configuration over the unroll budget raises on both.
+
+    Without gradients the CUDA route reuses the scene's packed tables
+    while its tensors are the same objects at the same versions: a write
+    that leaves the version as it was (``.data``, a numpy view, a fused
+    optimizer step on parameters held detached) goes unseen until
+    :func:`clear_table_cache`."""
     device = px.device
     if device.type == "cpu":
+        if _wants_grad(scene, view_matrix):
+            _check_unroll_budget(cfg)
         return path_trace_pixels_reference(rand_state, view_matrix, px, py,
                                            scene, meta, cfg)
     if device.type != "cuda":
@@ -411,10 +478,16 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
 def _kernel_route(rand_state, view_matrix, px, py, scene: SceneData,
                   meta: SceneMeta, cfg: RenderConfig):
     """The CUDA route of :func:`path_trace_pixels_megakernel`: pack the
-    scene's tables, prepare the kernels' buffers, and apply the autograd
-    node that launches them."""
+    scene's tables (with gradients wanted through differentiable ops every
+    call, else once per scene), prepare the kernels' buffers, and apply the
+    autograd node that launches them."""
+    grad = _wants_grad(scene, view_matrix)
+    if grad:
+        _check_unroll_budget(cfg)
     with profiling.span("megakernel.pack_tables"):
-        tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
+        view = view_matrix.to(torch.float32)
+        tables = (pack_tables(scene) if grad
+                  else (_scene_tables(scene, px.device),)) + (view,)
     with profiling.span("megakernel.prepare"):
         flat, counts, state, px32, py32 = _prepare(rand_state, px, py,
                                                    tables, scene)

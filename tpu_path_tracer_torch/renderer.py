@@ -75,7 +75,13 @@ class Renderer:
 
     def step(self, reset: Optional[bool] = None):
         """Advance one progressive frame.  ``reset`` defaults to the camera
-        motion flags, like renderer.js:174-180."""
+        motion flags, like renderer.js:174-180.
+
+        Through the megakernel the scene's tables are packed on the first
+        frame and reused while its tensors keep their versions; after a
+        write that leaves a version as it was (``.data``, a numpy view, a
+        fused optimizer step on parameters held detached) call
+        ``kernels.megakernel.clear_table_cache()``."""
         profiling.count("frames")
         with profiling.span("renderer.step"):
             if reset is None:

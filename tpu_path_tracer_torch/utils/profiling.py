@@ -207,8 +207,10 @@ def recording():
 def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name``.  The program counts "frames"
     (``Renderer.step``), "host_syncs" (each place it makes the host wait
-    for the device), "table_packs" (``megakernel.pack_tables``) and the
-    launches of each CUDA kernel under the kernel's name."""
+    for the device), "table_packs" (``megakernel.pack_tables``),
+    "table_cache_hits" (a frame that reused the megakernel's packed
+    tables) and the launches of each CUDA kernel under the kernel's
+    name."""
     _counts[name] += n
 
 
