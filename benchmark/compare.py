@@ -73,6 +73,10 @@ class FrameTally:
         self.bad += int(torch.count_nonzero(img_prog != img_ref))
         self.values += img_ref.numel()
 
-    def numbers(self) -> dict:
-        return {"frame_err": self.diff / self.size if self.size else 0.0,
-                "display_err": self.bad / max(self.values, 1)}
+    def numbers(self, total=lambda sums: sums) -> dict:
+        """The two numbers; ``total`` sums the four sums over the ranks
+        of a multi-card run."""
+        diff, size, bad, values = total(
+            [self.diff, self.size, self.bad, self.values])
+        return {"frame_err": diff / size if size else 0.0,
+                "display_err": bad / max(values, 1)}

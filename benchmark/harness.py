@@ -15,6 +15,18 @@ a profile of the device alone (its end-to-end numbers against the first
 window's are the tracing's overhead) and ``trace_units_host`` steps under
 a profile of the host too (``profile_reduce``); the device's memory peak;
 the reference's check of what the window produced; the line.
+
+A cell whose ``chips`` is n > 1 runs on n ranks, one process a card, all
+started by ``ranks.launch`` (``run.py``), each running ``run_cell`` with
+its ``ranks.Group``: the program gets the run's mesh, every rank steps and
+displays the same frames in lockstep, and rank 0 alone decides when the
+window ends and which frames are kept (``Context.agree``).  A barrier ends
+set-up on every rank, so ``setup_s`` runs from the launcher's start to the
+first timed frame.  The traced phases run the same frames on every rank;
+every rank profiles its device (``busy_s`` and ``window_s`` are the ranks'
+mean), and rank 0 alone profiles the host and reads the metrics.  Each
+rank checks its own rows, the tallies are summed over the ranks, and rank
+0 returns the line with every rank's facts; the others return None.
 """
 
 from __future__ import annotations
@@ -78,12 +90,17 @@ def _no_span(name):
 
 class Context:
     """What a job gets: the cell's files, its scene's description, the
-    seed and the device."""
+    seed, the device, and on several ranks this rank's ``ranks.Group``
+    (``group``, whose ``mesh`` the program gets; None in one process)."""
 
-    def __init__(self, cell, config, traffic, seed, device, base=HERE):
+    def __init__(self, cell, config, traffic, seed, device, base=HERE,
+                 group=None):
         self.cell, self.config, self.traffic = cell, config, traffic
         self.seed = seed
-        self.device = torch.device(device)
+        self.group = group
+        self.mesh = None if group is None else group.mesh
+        self.rank = 0 if group is None else group.rank
+        self.device = torch.device(device) if group is None else group.device
         recipe = load_module(base / "scenes" / f"{config['recipe']}.py",
                              f"benchmark.scenes.{config['recipe']}")
         self.desc = recipe.describe(config.get("recipe_args", {}))
@@ -92,12 +109,20 @@ class Context:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def agree(self, *flags):
+        """Rank 0's ``flags`` on every rank; one process keeps its own."""
+        return flags if self.group is None else self.group.agree(*flags)
 
-def make_job(name, seed, device, base=HERE, overrides=None):
+    def total(self, values):
+        """``values`` summed over the ranks; one process keeps its own."""
+        return values if self.group is None else self.group.total(values)
+
+
+def make_job(name, seed, device, base=HERE, overrides=None, group=None):
     cell = load("cells", name, base)
     config = load("configs", cell["config"], base)
     traffic = dict(load("traffic", cell["traffic"], base), **(overrides or {}))
-    ctx = Context(cell, config, traffic, seed, device, base)
+    ctx = Context(cell, config, traffic, seed, device, base, group)
     mod = load_module(base / "jobs" / f"{traffic['job']}.py",
                       f"benchmark.jobs.{traffic['job']}")
     return cell, mod.Job(ctx)
@@ -135,19 +160,32 @@ def device_facts(device, memory_peak):
             "count": 1, "memory_peak_bytes": int(memory_peak)}
 
 
+def ranks_facts(device, ranks):
+    """``device`` facts of a multi-card run from every rank's: the
+    distinct devices the ranks ran on, the largest rank's peak."""
+    facts = device_facts(device, max(r["memory_peak_bytes"] for r in ranks))
+    facts["count"] = len({r["device"] for r in ranks})
+    return facts
+
+
 def forbidden_modules():
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
 def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
-             base=HERE, root=ROOT, overrides=None, say=print):
+             base=HERE, root=ROOT, overrides=None, say=print, group=None):
     """Run one cell; returns the result line's dict (``checks`` last).
-    ``say`` prints a line that goes before the result."""
+    ``say`` prints a line that goes before the result.  With ``group``
+    this process is one rank of a multi-card run, and only rank 0 returns
+    the line (see the module's docstring)."""
     t_start = time.perf_counter() if t_start is None else t_start
-    cell, job = make_job(name, seed, device, base, overrides)
+    lead = group is None or group.rank == 0
+    cell, job = make_job(name, seed, device, base, overrides, group)
     dev = job.ctx.device
     job.setup()
     job.ctx.sync()
+    if group is not None:
+        group.barrier()
     setup_s = time.perf_counter() - t_start
     spans = Spans(profiled=False) if trace else _no_span
     e2e, attempted, _ = job.window(seconds=seconds, spans=spans)
@@ -163,18 +201,23 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
                                                         spans=_no_span)
         dev_trace = (profile_reduce.device_trace(prof, traced_s) if cuda
                      else None)
-        # The host profile, with the benchmark's spans, for the idle gaps.
-        marks = Spans(profiled=True)
-        with profile(activities=[ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if cuda else [])) as prof:
-            with torch.profiler.record_function(profile_reduce.WINDOW):
-                job.window(units=job.job["trace_units_host"], spans=marks)
-        host = profile_reduce.host_trace(prof, set(marks.durations))
+        host_units = job.job["trace_units_host"]
+        if lead:
+            # The host profile, with the benchmark's spans, for the idle
+            # gaps.
+            marks = Spans(profiled=True)
+            with profile(activities=[ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if cuda else [])) as prof:
+                with torch.profiler.record_function(profile_reduce.WINDOW):
+                    job.window(units=host_units, spans=marks)
+            host = profile_reduce.host_trace(prof, set(marks.durations))
+            say(json.dumps({"tracing_overhead": {
+                k: {"spans_only": e2e[k], "device_profile": traced[k],
+                    "change_pct": 100.0 * (traced[k] - e2e[k]) / e2e[k]}
+                for k in e2e}}))
+        else:
+            job.window(units=host_units, spans=_no_span)
         del prof
-        say(json.dumps({"tracing_overhead": {
-            k: {"spans_only": e2e[k], "device_profile": traced[k],
-                "change_pct": 100.0 * (traced[k] - e2e[k]) / e2e[k]}
-            for k in e2e}}))
 
     memory_peak = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)
@@ -183,11 +226,29 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
     numbers, bounds = job.check()
     limits = cell["limits"]
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
+    busy = (dev_trace.busy_s, dev_trace.window_s) if (
+        trace and dev_trace is not None and dev_trace.device) else None
+    if group is None:
+        facts = device_facts(dev, memory_peak)
+        ranks = None
+    else:
+        ranks = group.gather({
+            "device": group.identity(), "units": attempted,
+            "checked": getattr(job, "kept", []), "failed": failed,
+            "memory_peak_bytes": int(memory_peak), "busy": busy,
+            "agree_ms": 1e3 * group.agree_s / max(group.agreed, 1),
+            "forbidden": forbidden_modules()})
+        if not lead:
+            return None
+        facts = ranks_facts(dev, ranks)
+        failed = sum(r["failed"] for r in ranks)
+        busy = (None if any(r["busy"] is None for r in ranks) else
+                tuple(sum(x) / len(ranks) for x in zip(
+                    *(r["busy"] for r in ranks))))
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
                   for c in checks.values()) and failed == 0
 
     out = {"correct": correct, "attempted": attempted, "failed": failed}
-    facts = device_facts(dev, memory_peak)
     if trace:
         r = Reading(job.KIND, traced_units, dev_trace, spans.durations,
                     bounds)
@@ -198,9 +259,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
                 metrics[entry["name"]] = {"value": value,
                                           "unit": entry["unit"]}
         out["metrics"] = metrics
-        if dev_trace is not None and dev_trace.device:
-            facts["busy_s"] = dev_trace.busy_s
-            facts["window_s"] = dev_trace.window_s
+        if busy is not None:
+            facts["busy_s"], facts["window_s"] = busy
             out["breakdown"] = {"device_ops": dev_trace.top_device_ops(),
                                 "idle_gaps": host.idle_gaps()}
     else:
@@ -208,5 +268,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
                           for k, v in e2e.items()}
         out["metrics"]["setup_s"] = {"value": setup_s, "unit": "s"}
     out["device"] = facts
+    if ranks is not None:
+        out["ranks"] = ranks
     out["checks"] = checks
     return out

@@ -390,13 +390,14 @@ def pixels_radiance(pix, frame_num, view, scene: Scene, job, work=None):
     return total / len(cells)
 
 
-def render(scene, frame_num, view, job, block, work=None):
-    """One frame's radiance ``[W*H, 3]`` without gradients."""
-    n = job["width"] * job["height"]
+def render(scene, frame_num, view, job, block, work=None, pixels=None):
+    """One frame's radiance without gradients: ``[W*H, 3]``, or the rows
+    ``pixels = (start, stop)`` of it (one rank's chunk)."""
+    start, stop = pixels or (0, job["width"] * job["height"])
     out = []
     with torch.no_grad():
-        for start in range(0, n, block):
-            pix = torch.arange(start, min(n, start + block),
+        for first in range(start, stop, block):
+            pix = torch.arange(first, min(stop, first + block),
                                device=view.device)
             out.append(pixels_radiance(pix, frame_num, view, scene, job,
                                        work))

@@ -1,5 +1,5 @@
 """The benchmark of the PyTorch and CUDA port of the path tracer, one
-cell and one seed a run, on one NVIDIA GPU::
+cell and one seed a run, on the NVIDIA GPUs the cell asks for::
 
     python3 benchmark/run.py --workload cornell.train --seed 7 \
         --seconds 10 --trace 0
@@ -8,6 +8,15 @@ The last line of standard output is the result (see ``harness.py``); the
 last lines of standard error are the numbers that decided ``correct``,
 each beside its limit.  Without a CUDA device, or with fewer devices than
 the cell asks for, it prints no result and exits with 2.
+
+A cell of one card runs in this process.  A cell of n > 1 cards runs on n
+ranks, one process a card, which this process starts (``ranks.py``) and
+waits for: the ranks step and display the same frames, rank 0 decides
+when the window ends and which frames are checked, and rank 0's line,
+with every rank's device, comes back here.  It is printed once every rank
+has ended cleanly; when a rank fails, holds a module the port must not
+load, or the ranks ran on fewer distinct cards than the cell asks for, no
+line is printed and the exit code is not 0.
 """
 
 import time
@@ -54,8 +63,16 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip()}", file=sys.stderr)
 
-    out = harness.run_cell(args.workload, args.seed, args.seconds,
-                           bool(args.trace), "cuda", T_START)
+    if chips > 1:
+        from benchmark import ranks
+
+        code, out = ranks.run_cell(args.workload, args.seed, args.seconds,
+                                   bool(args.trace), chips, T_START)
+        if code:
+            return code
+    else:
+        out = harness.run_cell(args.workload, args.seed, args.seconds,
+                               bool(args.trace), "cuda", T_START)
     found = harness.forbidden_modules()
     if found:
         print(f"benchmark: the process holds {found}, which the port must "

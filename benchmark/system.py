@@ -46,6 +46,29 @@ def render_config(job: dict):
         rr_start_bounce=job["rr_start"], use_megakernel=True)
 
 
+def join_ranks(address: str, world: int, rank: int, device: str):
+    """This process as rank ``rank`` of ``world`` through the program's
+    ``init_distributed`` (card ``LOCAL_RANK``, NCCL; gloo on the CPU);
+    returns the program's 1-D mesh over every rank and the device it keeps
+    this rank's tensors on."""
+    from tpu_path_tracer_torch.dist.sharding import (init_distributed,
+                                                      make_mesh, rank_device)
+
+    init_distributed(address, world, rank, device=device)
+    mesh = make_mesh(device_type=device)
+    return mesh, rank_device(mesh)
+
+
+def build_kernels():
+    """The program's CUDA library and native BVH builder, built once before
+    the ranks start (as its ``render --devices`` does), not in each."""
+    from tpu_path_tracer_torch.accel import native
+    from tpu_path_tracer_torch.kernels import _build
+
+    _build.build()
+    native.available()
+
+
 def camera(config: dict):
     return program().Camera(eye=config["eye"], center=config["center"],
                             up=config.get("up", [0.0, 1.0, 0.0]))
