@@ -123,9 +123,9 @@ def test_frame_spans_under_a_profiler(kernel_route):
 
 
 def test_recording_turns_spans_on_without_a_profiler():
-    """``recording()`` records the renderer's spans with no profiler
-    running, and stops when it ends; ``reset()`` clears the record, and
-    refuses inside a span."""
+    """``recording()`` records the renderer's spans, and the wavefront's
+    inside its step, with no profiler running, and stops when it ends;
+    ``reset()`` clears the record, and refuses inside a span."""
     r = _renderer(use_megakernel=False)
     assert not torch.autograd.profiler._is_profiler_enabled
     with profiling.recording():
@@ -134,8 +134,8 @@ def test_recording_turns_spans_on_without_a_profiler():
             profiling.reset()
     _frames(r, 1)
     assert [s.name for s in profiling.spans()] == [
-        "renderer.step", "renderer.display", "renderer.display.copy",
-        "test.open"]
+        "renderer.step", "wavefront.trace", "renderer.display",
+        "renderer.display.copy", "test.open"]
     profiling.reset()
     assert profiling.spans() == [] and profiling.counts() == {}
 

@@ -27,6 +27,7 @@ from ..core import rng
 from ..core.config import RenderConfig
 from ..core.types import Ray, SceneData, SceneMeta
 from ..kernels.hit import find_hit, shade_hit
+from ..utils import profiling
 from . import lights
 from .bsdf import lambertian_pdf, material_scatter
 
@@ -48,7 +49,16 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
     ``pidx``, ``vol_u``), and replays the rest of the bounce from them, so
     the replay never repeats the hit search.  The PCG state goes in and
     out of the replayed part explicitly, so the replay draws the same
-    numbers."""
+    numbers.
+
+    The call is the span ``wavefront.trace``, and each bounce adds one to
+    the counter ``wavefront_bounces`` (``utils.profiling``)."""
+    with profiling.span("wavefront.trace"):
+        return _trace(rand_state, ray, scene, meta, cfg)
+
+
+def _trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
+           cfg: RenderConfig):
     device = ray.origin.device
     background = torch.as_tensor(np.asarray(cfg.background, np.float32),
                                  device=device)
@@ -125,6 +135,7 @@ def trace(rand_state, ray: Ray, scene: SceneData, meta: SceneMeta,
     remat = cfg.remat_bounces and torch.is_grad_enabled()
     origin, direction = ray.origin, ray.dir
     for bounce_idx in range(cfg.max_bounces):
+        profiling.count("wavefront_bounces")
         rand_state, ptype, pidx, vol_u = find_hit(
             rand_state, Ray(origin=origin, dir=direction), scene, meta, cfg,
             alive=alive)

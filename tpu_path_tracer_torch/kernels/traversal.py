@@ -287,36 +287,40 @@ def _bind(lib):
 def _launch(origin, direction, bvh: FlatBVH, tris: Triangles, t_min: float,
             t_best0):
     """Launch ``csrc/traversal.cu`` on the current stream; returns
-    (t [N] f32, tri_index [N] int64)."""
+    (t [N] f32, tri_index [N] int64).  The packing is the span
+    ``traversal.pack`` and the walk's enqueue the span ``traversal.launch``,
+    one after the other."""
     from . import _build
 
     device = origin.device
     n = origin.shape[0]
     if n > _INT32_MAX:
         raise ValueError(f"{n} rays do not fit the kernel's int32 indices")
-    rays = []
     for name, x, shape in (("origin", origin, (n, 3)),
                            ("direction", direction, (n, 3)),
                            ("t_best0", t_best0, (n,))):
         if x.device != device or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)} on {device}, got "
                              f"{list(x.shape)} on {x.device}")
-        rays.append(x.detach().to(torch.float32).contiguous())
     if bvh.mins.device != device:
         raise ValueError(f"bvh on {bvh.mins.device}, rays on {device}")
-    rows, tri_rows = pack_bvh(bvh, tris)
-    t_out = torch.empty((n,), dtype=torch.float32, device=device)
-    idx_out = torch.empty((n,), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _bind(_build.load())(
-        *(x.data_ptr() for x in rays), rows.data_ptr(), tri_rows.data_ptr(),
-        n, float(t_min), float(intersect.INF), t_out.data_ptr(),
-        idx_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"traversal kernel launch failed: CUDA error "
-                           f"{err}")
-    profiling.count("bvh_closest_hit")
-    return t_out, idx_out.to(torch.int64)
+    with profiling.span("traversal.pack"):
+        rows, tri_rows = pack_bvh(bvh, tris)
+    with profiling.span("traversal.launch"):
+        rays = [x.detach().to(torch.float32).contiguous()
+                for x in (origin, direction, t_best0)]
+        t_out = torch.empty((n,), dtype=torch.float32, device=device)
+        idx_out = torch.empty((n,), dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _bind(_build.load())(
+            *(x.data_ptr() for x in rays), rows.data_ptr(),
+            tri_rows.data_ptr(), n, float(t_min), float(intersect.INF),
+            t_out.data_ptr(), idx_out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"traversal kernel launch failed: CUDA error "
+                               f"{err}")
+        profiling.count("bvh_closest_hit")
+        return t_out, idx_out.to(torch.int64)
 
 
 def closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,

@@ -209,8 +209,8 @@ def count(name: str, n: int = 1):
     (``Renderer.step``), "host_syncs" (each place it makes the host wait
     for the device), "table_packs" (``megakernel.pack_tables``),
     "table_cache_hits" (a frame that reused the megakernel's packed
-    tables) and the launches of each CUDA kernel under the kernel's
-    name."""
+    tables), "wavefront_bounces" (a bounce of the wavefront integrator)
+    and the launches of each CUDA kernel under the kernel's name."""
     _counts[name] += n
 
 
