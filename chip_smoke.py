@@ -66,6 +66,13 @@ Phases, each printed on its own line; any failure exits non-zero:
     512x512, through the kernel at 1024x1024 with 327,680 triangles, a
     torch.profiler breakdown of a mesh frame, and the four traversal
     launches of one frame replayed one by one (work, device time, bound);
+    then mesh_megakernel: ``render_animation(8)`` of the same scene
+    through the forward megakernel's BVH variant (``use_megakernel``),
+    its launches and the BVH's packs counted, one frame of it against the
+    wavefront with the traversal kernel from the same PCG states (the
+    share of bit-equal pixels, the largest difference), its device time a
+    frame against its bound, and ptxas' report of both instantiations of
+    the forward kernel;
 13. mesh_train: 3 steps of ``make_train_step`` on the mesh scene at
     512x512 over emission and vertices (the BVH refit runs every step);
     then train_bits: the wavefront's train steps run twice from one start
@@ -141,8 +148,10 @@ line is ``{"ok": true, "device": {...}}``.  In it the forward megakernel's
 packing, seeding, the kernel and accumulation) and its ``device_ms`` the
 kernel's own device time per frame (phase 6's profile); the backward's
 ``ms`` is a train step's backward and its ``device_ms`` the kernel's own
-(phase 9).  Both megakernel rows also carry what ptxas reported at the
-build (``registers``, ``spill_bytes``, static ``smem_bytes``,
+(phase 9).  The forward's BVH variant, ``megakernel_fwd_bvh``, has a row
+of its own: ``ms`` a mesh frame through the renderer, ``device_ms`` the
+kernel's own (phase 12).  The megakernel rows also carry what ptxas
+reported at the build (``registers``, ``spill_bytes``, static ``smem_bytes``,
 ``stack_bytes``), as do the traversal kernel's, the packing kernel's
 and the pair sweeps' rows; the emission's rows (``emit_pairbin``,
 ``pairbin_best``, ``emit_pair``, ``pair_advance``: one launch counted per
@@ -379,7 +388,8 @@ def build_phase():
                             if "Used" in ln or "spill" in ln
                             or "entry function" in ln])
     out = {name: _build.ptxas_report(text, f"{name}_kernel")
-           for name in ("megakernel_fwd", "megakernel_bwd",
+           for name in ("megakernel_fwd", "megakernel_fwd_bvh",
+                        "megakernel_bwd",
                         "megakernel_bwd_fold", "bvh_stack_walk", "bvh_pack",
                         "pairbin_sweep", "pair_sweep")}
     # The emission's kernels; the two emitting ones are templates with a
@@ -1428,6 +1438,85 @@ def mesh_timing_phase(torch, pt, device, smi):
           ms_per_frame=statistics.median(t[1:]), ms_min=min(t[1:]),
           ms_max=max(t[1:]), frames=len(t) - 1, card=smi)
     return out
+
+
+def mesh_megakernel_phase(torch, pt, device, smi, ptxas, frames=8):
+    """Phase 12's megakernel: the mesh scene through the forward kernel's
+    BVH variant; returns its row of the kernels line."""
+    import numpy as np
+    from tpu_path_tracer_torch.core import rng
+    from tpu_path_tracer_torch.integrator.render import pixel_grid
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+
+    scene, meta = mesh_scene(MESH_SUBDIVISIONS[0], device)
+    cfg = pt.RenderConfig(**MESH_KW, use_megakernel=True)
+    camera = pt.Camera(eye=MESH_EYE, center=[0, 0, 0])
+    view = torch.as_tensor(camera.view_matrix, device=device)
+    check(mk.walks_bvh(scene, meta) and mk.routes(scene, meta, cfg, view),
+          "the mesh scene does not take the megakernel's BVH variant")
+    renderer = pt.Renderer(scene, meta, cfg, camera)
+    torch.cuda.synchronize()
+    before = counts()
+    start = time.perf_counter()
+    renderer.render_animation(frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launches_since(before, "megakernel_fwd_bvh", "megakernel_fwd",
+                              "bvh_closest_hit", "bvh_pack", "table_packs")
+    check(launches == {"megakernel_fwd_bvh": frames, "megakernel_fwd": 0,
+                       "bvh_closest_hit": 0, "bvh_pack": 1,
+                       "table_packs": 1},
+          f"{frames} mesh frames through the megakernel launched {launches}")
+
+    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    state = rng.seed(pix, 3)
+    with torch.no_grad():
+        got = mk.path_trace_pixels_megakernel(state, view, px, py, scene,
+                                              meta, cfg).cpu().numpy()
+        ref = mk.path_trace_pixels_reference(state, view, px, py, scene,
+                                             meta, cfg).cpu().numpy()
+    bits = float((got.view(np.int32) == ref.view(np.int32)).all(-1).mean())
+    share = float(np.isclose(got, ref, rtol=KERNEL_TOL,
+                             atol=KERNEL_TOL).all(axis=-1).mean())
+    max_err = float(np.abs(got - ref).max())
+    check(share >= KERNEL_MIN_SHARE,
+          f"mesh megakernel frame: only {share:.4f} of pixels within "
+          f"{KERNEL_TOL}")
+    check(np.allclose(got.mean(0), ref.mean(0), rtol=KERNEL_MEAN_RTOL,
+                      atol=1e-6), "mesh megakernel frame: image means differ")
+
+    # The bound counts the paths of frame 1 (megakernel_bound).
+    state = rng.seed(pix, 1)
+
+    def one_frame():
+        with torch.no_grad():
+            mk.path_trace_pixels_megakernel(state, view, px, py, scene, meta,
+                                            cfg)
+
+    dev_ms, _ = profile_device_ms(one_frame, 10,
+                                  {"kernel": ["megakernel_fwd_bvh"]})
+    b = megakernel_bound(scene, meta, cfg, MESH_EYE, backward=False)
+    kernel_ms = dev_ms["kernel"]
+    phase("mesh_megakernel", tris=scene.triangles.count,
+          size=f"{cfg.width}x{cfg.height}", max_bounces=cfg.max_bounces,
+          frames=frames, launches=launches, seconds=round(seconds, 4),
+          bit_equal_share=bits, share_within_tol=share, tol=KERNEL_TOL,
+          max_abs_err=max_err, device_ms_per_frame=kernel_ms,
+          bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+          share_of_bound=(b["bound_ms"] / kernel_ms
+                          if isinstance(kernel_ms, float) else
+                          "not measured"),
+          walk_rows=b["walk_rows"], walk_tri_tests=b["walk_tri_tests"],
+          card=smi, ptxas={k: ptxas[k] for k in ("megakernel_fwd",
+                                                 "megakernel_fwd_bvh")})
+    return {"name": "megakernel_fwd_bvh", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": launches["megakernel_fwd_bvh"],
+            "max_abs_err": max_err, "bit_equal_share": bits,
+            "ms": 1e3 * seconds / frames, "device_ms": kernel_ms,
+            "plain_ms": None, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            **ptxas["megakernel_fwd_bvh"]}
 
 
 def mesh_launches(torch, pt, scene, meta, cfg, view, smi):
@@ -3028,6 +3117,7 @@ def run():
     trav = traversal_phase(torch, pt, device, smi)
     mesh_launches, pack_launches = mesh_main_path_phase(torch, pt, device)
     mesh_times = mesh_timing_phase(torch, pt, device, smi)
+    mesh_megakernel = mesh_megakernel_phase(torch, pt, device, smi, ptxas)
     mesh_train_phase(torch, pt, device)
     wavefront_bits_phase(torch, pt, device, smi)
     mesh_cli_phase(pt)
@@ -3060,6 +3150,7 @@ def run():
          "plain_ms": times["plain"], "bound_ms": fwd_bound["bound_ms"],
          "bound_by": fwd_bound["bound_by"], "library_ms": None,
          **ptxas["megakernel_fwd"]},
+        mesh_megakernel,
         {"name": "megakernel_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES,
          "launches": train_launches["megakernel_bwd"],

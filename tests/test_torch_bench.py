@@ -372,6 +372,51 @@ def test_traversal_bound_counts_as_before():
     np.testing.assert_array_equal(t, t_p.numpy())
 
 
+def test_megakernel_bound_counts_the_bvh_walks():
+    """Where the forward walks the scene's BVH (bench.py's mesh scene at
+    subdivision 2, 320 triangles), its bound counts the walks the
+    wavefront's frame makes, by the kernel's walk built for the host, in
+    place of a test of every triangle, and reads the BVH's rows once."""
+    from tpu_path_tracer_torch.kernels import megakernel as mk
+    from tpu_path_tracer_torch.kernels import traversal
+
+    scene, meta = bench.mesh_scene(2, "cpu")
+    assert mk.walks_bvh(scene, meta)
+    cfg = pt.RenderConfig(width=8, height=8, max_bounces=2,
+                          importance_sampling=True)
+    calls = []
+    closest_hit = traversal.closest_hit
+
+    def recorded(*args):
+        calls.append(args)
+        return closest_hit(*args)
+
+    traversal.closest_hit = recorded
+    try:
+        b = bounds.megakernel_bound(scene, meta, cfg, [0, 0, 3.2],
+                                    backward=False)
+    finally:
+        traversal.closest_hit = closest_hit
+    assert len(calls) == cfg.max_bounces
+    rows, tri_rows = traversal.pack_bvh(scene.bvh, scene.triangles)
+    lib = _build.load_host_walk()
+    walks = [bounds.counted_walk(rows, tri_rows, o, d, t0, t_min, lib)[2:]
+             for o, d, _, _, t_min, t0 in calls]
+    assert (b["walk_rows"], b["walk_tri_tests"]) == tuple(map(sum,
+                                                              zip(*walks)))
+    assert b["walk_rows"] > 0 and b["walk_tri_tests"] > 0
+    per_bounce = (bounds.RAY_FLOPS + 3 * bounds.QUAD_CULL_FLOPS
+                  + bounds.SHADE_FLOPS + bounds.NEE_FLOPS)
+    assert scene.quads.count == 3 and scene.spheres.count == 0
+    assert b["flops"] == (b["lane_bounces"] * per_bounce
+                          + b["facing_quads"] * bounds.QUAD_FLOPS
+                          + b["walk_rows"] * bounds.ROW_FLOPS
+                          + b["walk_tri_tests"] * bounds.MT_PRE_FLOPS)
+    tables = 4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
+    assert b["bytes"] == (64 * 24 + tables + 64 * rows.shape[0]
+                          + 48 * scene.triangles.count)
+
+
 def test_one_count_serves_both_scripts():
     """chip_smoke.py's bounds and profile helpers are the package's."""
     for name in ("bound", "megakernel_bound", "traversal_bound",

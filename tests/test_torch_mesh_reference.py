@@ -1,16 +1,21 @@
 """The port's mesh route against the benchmark's reference for scenes of
 many triangles (``benchmark/reference/integrator_mesh.py``), the recipe of
-its 81,920-triangle icosphere (``benchmark/scenes/icosphere81k.py``), and
-the mesh route's spans and counters (``utils.profiling``).
+its 81,920-triangle icosphere (``benchmark/scenes/icosphere81k.py``), the
+mesh route's spans and counters (``utils.profiling``), and the forward
+megakernel's BVH variant (built for the CPU) and its routing.
 
-Above 64 triangles the port takes neither the megakernel nor the dense
-sweep: its builder makes an LBVH, and a frame runs the wavefront
-integrator with the BVH walk (on CPU tensors the plain skip-link walk).
-The reference searches the triangles in blocks in index order; over all
-triangles at once (``integrator.py``) it gives the same bits.
+Above 64 triangles the port's builder makes an LBVH.  A frame without
+gradients then runs the forward megakernel's BVH variant, whose hit
+search walks the BVH (on CPU tensors its plain version, the wavefront
+integrator with the plain skip-link walk); training keeps the wavefront
+with the BVH walk.  The reference searches the triangles in blocks in
+index order; over all triangles at once (``integrator.py``) it gives the
+same bits.
 """
 
 import ctypes
+import shutil
+import subprocess
 import types
 
 import numpy as np
@@ -25,11 +30,16 @@ from benchmark.reference import scene as rs
 from benchmark.scenes import icosphere81k
 
 import tpu_path_tracer_torch as pt
-from tpu_path_tracer_torch.integrator.render import render_frame
+from tpu_path_tracer_torch.core import rng
+from tpu_path_tracer_torch.integrator.render import pixel_grid, render_frame
 from tpu_path_tracer_torch.kernels import _build, megakernel, traversal
 from tpu_path_tracer_torch.scene import procedural
 from tpu_path_tracer_torch.scene.builder import BRUTE_FORCE_MAX_TRIS
 from tpu_path_tracer_torch.utils import profiling
+
+from test_torch_render import HOST_FORWARD
+from test_torch_traversal import _left_chain
+from torch_kernel_route import kernel_route  # noqa: F401
 
 # Radiance: tests/test_pallas.py:52's parity tolerance.  The walk meets
 # the triangles in the BVH's order and the reference in the recipe's, so
@@ -37,6 +47,7 @@ from tpu_path_tracer_torch.utils import profiling
 # triangle, whose interpolated normal differs from it by rounding.
 RAD_TOL = 2e-4
 EYE = [0.0, 0.0, 3.2]
+MAX_TRIS = megakernel.MAX_MEGAKERNEL_TRIS
 
 
 def _job(**kw):
@@ -59,7 +70,9 @@ def test_mesh_route_equals_the_blocked_reference(nee):
     cfg = system.render_config(job)
     assert scene.triangles.count == 320 > BRUTE_FORCE_MAX_TRIS
     assert meta.traversal == "bvh" and scene.bvh is not None
-    assert not megakernel.supported(scene, meta, cfg)
+    assert megakernel.supported(scene, meta, cfg)
+    assert megakernel.walks_bvh(scene, meta)
+    assert not megakernel.vjp_supported(scene, meta, cfg)
     ref = rs.build(desc, "cpu")
     pix = torch.arange(job["width"] * job["height"])
     for frame_num in (1, 9):
@@ -180,4 +193,186 @@ def test_mesh_frame_spans_and_counters(route, request):
     assert counts["wavefront_bounces"] == 2 * 3
     assert counts["bvh_closest_hit"] == (6 if route == "walk" else 0)
     assert counts["bvh_pack"] == 0  # the plain packing launches nothing
+    profiling.reset()
+
+
+# ------------------------------------- the forward megakernel's BVH variant
+
+
+def _chain_scene():
+    """The recipe's room (no icosphere) with a hand-built tree as deep as
+    the walk's stack: ``test_torch_traversal._left_chain``'s 65 triangles
+    at z = -0.01 j over x, y in [0, 1], white, facing +z.  A ray that
+    enters the common box pushes every right leaf."""
+    desc = icosphere81k.describe({"subdivisions": 0})
+    desc["meshes"] = []
+    scene, meta = system.build_scene(desc, "cpu")
+    _, _, bvh, tris = _left_chain(traversal.STACK_DEPTH)
+    up = torch.zeros_like(tris.a)
+    up[:, 2] = 1.0
+    white = [m["name"] for m in desc["materials"]].index("white")
+    tris = tris._replace(na=up, nb=up, nc=up.clone(),
+                         material_id=torch.full_like(tris.material_id,
+                                                     white))
+    meta = pt.SceneMeta(has_volumes=meta.has_volumes, traversal="bvh",
+                        max_leaf=1, has_light=meta.has_light)
+    return scene._replace(triangles=tris, bvh=bvh), meta
+
+
+def _bvh_scene(name):
+    if name == "chain":
+        return _chain_scene()
+    desc = (icosphere81k.describe({"subdivisions": 2}) if name == "room"
+            else _twice(2))
+    return system.build_scene(desc, "cpu")
+
+
+@pytest.fixture(scope="module")
+def host_tracers(tmp_path_factory):
+    """``traversal.cu`` built for the CPU (its host entry point
+    ``tpt_megakernel_fwd_bvh_host``: the BVH variant) and
+    ``test_torch_render``'s harness of the shared-memory variant."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler (g++)")
+    out = tmp_path_factory.mktemp("host_bvh")
+    walk = _build.load_host_walk(build_dir=out)
+    (out / "host.cpp").write_text(HOST_FORWARD)
+    subprocess.run([cxx, *_build.HOST_FLAGS[:-2], "-I",
+                    str(_build.CSRC_DIR), "-o", str(out / "host.so"),
+                    str(out / "host.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    shared = ctypes.CDLL(str(out / "host.so"))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scalars = [i] * 7 + [f] * 13
+    walk.tpt_megakernel_fwd_bvh_host.argtypes = (
+        [p] * 4 + [i] * 3 + [p] * 4 + scalars)
+    walk.tpt_megakernel_fwd_bvh_host.restype = None
+    shared.host_fwd.argtypes = [p, i, i, i] + [p] * 4 + scalars
+    shared.host_fwd.restype = None
+    return walk.tpt_megakernel_fwd_bvh_host, shared.host_fwd
+
+
+# With NEE the tracer's light-plane and pdf arithmetic rounds a few lanes
+# a few ULP away from the wavefront's torch operations (the shared-memory
+# variant does so on the Cornell box too: test_torch_render's
+# test_forward_kernel_source_on_cpu); the hit search does not.
+NEE_TOL = 2e-6
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["room", "twice", "chain"])
+def test_bvh_megakernel_source_on_cpu(host_tracers, name, nee):
+    """The forward kernel's BVH variant (``csrc/megakernel_fwd.cu``'s
+    tracer with ``bvh_walk.cuh``'s hit search, built for the CPU) over the
+    recipe's room at 320 triangles, the same with the icosphere added
+    twice (every sphere hit an exact tie) and a tree as deep as the
+    walk's stack: on frames 1 and 9 at 16x16, the same bits as the
+    shared-memory variant's triangle loop, and the wavefront's radiance,
+    bit for bit without NEE and within ``NEE_TOL`` with it."""
+    bvh_trace, shared_trace = host_tracers
+    scene, meta = _bvh_scene(name)
+    assert megakernel.walks_bvh(scene, meta)
+    cfg = system.render_config(_job(nee=nee))
+    view = _view().to(torch.float32)
+    pix, px, py = pixel_grid(16, 16, "cpu")
+    n = pix.shape[0]
+    flat = torch.cat([t.reshape(-1) for t in megakernel.pack_tables(scene)])
+    rows, tri_rows = traversal.pack_bvh(scene.bvh, scene.triangles)
+    args = megakernel._scalar_args(scene, meta, cfg, n)
+    for frame_num in (1, 9):
+        state = rng.seed(pix, frame_num)
+        ref = megakernel.path_trace_pixels_reference(
+            state, view, px, py, scene, meta, cfg)
+        st, x, y = megakernel._pixels(state, px, py)
+        got, loop = torch.empty((n, 3)), torch.empty((n, 3))
+        bvh_trace(flat.data_ptr(), view.contiguous().data_ptr(),
+                  rows.data_ptr(), tri_rows.data_ptr(),
+                  *megakernel._counts(scene), st.data_ptr(), x.data_ptr(),
+                  y.data_ptr(), got.data_ptr(), *args)
+        whole = torch.cat([flat, view.reshape(-1)])
+        shared_trace(whole.data_ptr(), *megakernel._counts(scene),
+                     st.data_ptr(), x.data_ptr(), y.data_ptr(),
+                     loop.data_ptr(), *args)
+        assert float(ref.abs().sum()) > 0
+        assert torch.equal(got.view(torch.int32), loop.view(torch.int32))
+        if nee:
+            torch.testing.assert_close(got, ref, rtol=NEE_TOL, atol=NEE_TOL)
+        else:
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _route_frames(scene, meta, cfg, frames=3):
+    fb = torch.zeros((cfg.width * cfg.height, 3))
+    for k in range(1, frames + 1):
+        render_frame(fb, k, k == 1, _view(), scene, meta, cfg)
+
+
+def test_bvh_scene_takes_the_kernel_route(kernel_route, monkeypatch):
+    """A BVH scene without gradients takes the megakernel's route with the
+    BVH variant: three frames launch it three times, pack the tables and
+    the BVH's rows once and reuse them (the same buffers), hand it the
+    tables without a copy of the view, and step no wavefront bounce."""
+    packs = []
+
+    def pack_bvh(bvh, tris):
+        packs.append(bvh)
+        return traversal.pack_bvh_plain(bvh, tris)
+
+    monkeypatch.setattr(traversal, "pack_bvh", pack_bvh)
+    scene, meta = _bvh_scene("room")
+    cfg = system.render_config(_job(width=8, height=4))
+    profiling.reset()
+    _route_frames(scene, meta, cfg)
+    counts = profiling.counts()
+    assert len(kernel_route) == 3 and len(kernel_route.bvh) == 3
+    assert len(packs) == 1
+    assert len(set(kernel_route.bvh)) == 1
+    assert (counts["table_packs"], counts["table_cache_hits"]) == (1, 2)
+    assert counts["wavefront_bounces"] == 0
+    fresh = torch.cat([t.reshape(-1) for t in megakernel.pack_tables(scene)]
+                      + [_view().reshape(-1).float()])
+    for flat in kernel_route:
+        assert torch.equal(flat, fresh)
+    profiling.reset()
+
+
+def test_bvh_scene_with_gradients_takes_the_wavefront(kernel_route):
+    """The same scene with an emission that requires grad: the frame runs
+    the wavefront with the BVH walk (no launch), and the gradient
+    reaches the parameter."""
+    scene, meta = _bvh_scene("room")
+    emission = scene.materials.emission.clone().requires_grad_()
+    scene = scene._replace(
+        materials=scene.materials._replace(emission=emission))
+    cfg = system.render_config(_job(width=8, height=4))
+    assert megakernel.supported(scene, meta, cfg)
+    assert not megakernel.routes(scene, meta, cfg, _view())
+    profiling.reset()
+    fb = render_frame(torch.zeros((32, 3)), 1, True, _view(), scene, meta,
+                      cfg)
+    assert len(kernel_route) == 0
+    assert profiling.counts()["wavefront_bounces"] == cfg.max_bounces
+    fb.sum().backward()
+    assert emission.grad is not None and float(emission.grad.abs().sum()) > 0
+    pix, px, py = pixel_grid(2, 2, "cpu")
+    with pytest.raises(NotImplementedError, match="BVH scene of 320"):
+        megakernel.path_trace_pixels_megakernel(
+            rng.seed(pix, 1), _view(), px, py, scene, meta, cfg)
+    profiling.reset()
+
+
+def test_brute_force_scene_takes_the_wavefront(kernel_route):
+    """A scene of 65-256 triangles has no BVH (the builder's brute-force
+    sweep): the megakernel does not take it, with gradients or without."""
+    scene, meta = system.build_scene(
+        icosphere81k.describe({"subdivisions": 1}), "cpu")
+    assert MAX_TRIS < scene.triangles.count <= BRUTE_FORCE_MAX_TRIS
+    assert meta.traversal == "brute" and scene.bvh is None
+    cfg = system.render_config(_job(width=8, height=4))
+    assert not megakernel.supported(scene, meta, cfg)
+    profiling.reset()
+    _route_frames(scene, meta, cfg, frames=2)
+    assert len(kernel_route) == 0
+    assert profiling.counts()["wavefront_bounces"] == 2 * cfg.max_bounces
     profiling.reset()

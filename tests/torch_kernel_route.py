@@ -14,26 +14,52 @@ from tpu_path_tracer_torch.kernels import _build
 from tpu_path_tracer_torch.kernels import megakernel as mk
 
 
+class Launches(list):
+    """The flat tables each launch was handed, in the forward kernel's
+    layout sph | quad | tri | light | cam; ``bvh`` holds, for each launch of
+    the BVH variant, the pointers of its node and triangle rows."""
+
+    def __init__(self):
+        super().__init__()
+        self.bvh = []
+
+
+def _floats(ptr, n):
+    return torch.frombuffer(bytearray(ctypes.string_at(ptr, 4 * n)),
+                            dtype=torch.float32)
+
+
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """The route with its kernel a stand-in that writes zero radiance.
-    Returns the list of the flat tables each launch was handed, copied out
-    of the launch's pointer.  The wrapper's cache of packed tables starts
-    and ends empty."""
-    flats = []
+    """The route with its kernels stand-ins that write zero radiance.
+    Returns the :class:`Launches`: the flat tables each launch was handed,
+    copied out of the launch's pointers (for the BVH variant, its tables
+    and the view matrix it takes apart).  The wrapper's cache of packed
+    tables starts and ends empty."""
+    flats = Launches()
 
     def launch(flat, n_sph, n_quad, n_tri, *args):
         out, n = args[3], args[4]
         floats = (n_sph * mk.SPH_COLS + n_quad * mk.QUAD_COLS
                   + n_tri * mk.TRI_COLS + mk.LIGHT_COLS + mk.CAM_COLS)
-        flats.append(torch.frombuffer(bytearray(ctypes.string_at(
-            flat, 4 * floats)), dtype=torch.float32))
+        flats.append(_floats(flat, floats))
+        ctypes.memset(out, 0, 12 * n)
+        return 0
+
+    def launch_bvh(flat, view, rows, tris, n_sph, n_quad, n_tri, *args):
+        out, n = args[3], args[4]
+        floats = (n_sph * mk.SPH_COLS + n_quad * mk.QUAD_COLS
+                  + n_tri * mk.TRI_COLS + mk.LIGHT_COLS)
+        flats.append(torch.cat([_floats(flat, floats),
+                                _floats(view, mk.CAM_COLS)]))
+        flats.bvh.append((rows, tris))
         ctypes.memset(out, 0, 12 * n)
         return 0
 
     monkeypatch.setattr(mk, "path_trace_pixels_reference", mk._kernel_route)
     monkeypatch.setattr(_build, "load", lambda: None)
     monkeypatch.setattr(mk, "_bind", lambda lib: (launch, None, None))
+    monkeypatch.setattr(mk, "_bind_bvh", lambda lib: launch_bvh)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     mk.clear_table_cache()

@@ -26,8 +26,25 @@
 // Each of these runs the same operations on the same operands as the
 // kernel of commit ae782d5 did, so the radiance is equal to its bit for
 // bit (PERF.md).
+//
+// Two instantiations of the tracer, picked by the scene (the wrapper,
+// kernels/megakernel.py, routes):
+//   * megakernel_fwd_kernel: at most MAX_MEGAKERNEL_TRIS (64) triangles,
+//     tested one by one from shared memory (tracer.cuh SharedTris);
+//   * megakernel_fwd_bvh_kernel: a scene with a BVH above that, for frames
+//     without gradients (the backward covers the first kind only).  Its hit
+//     search walks the BVH for the triangles after the spheres and quads
+//     (bvh_walk.cuh BvhTris: the traversal kernel's stack walk, to the bit
+//     its (t, index)), so a mesh frame is this one launch instead of the
+//     eager wavefront's thousands.  The node and triangle rows (9.1 MB at
+//     81,920 triangles) and the triangles' 31-float rows (10.2 MB) stay in
+//     global memory, L2-resident; shading reads the winner's row there.
+//     Shared memory holds the spheres, quads, light and camera.  The view
+//     matrix comes apart from the cached tables, so no frame copies the
+//     triangle table.  What bounds it: the walk's dependent loads, as in
+//     traversal.cu, now with the shading's registers live around them.
 
-#include "tracer.cuh"
+#include "bvh_walk.cuh"
 
 namespace {
 
@@ -58,6 +75,48 @@ megakernel_fwd_kernel(const float* __restrict__ tables,
   float rgb[3];
   trace_pixel(p, S, (uint32_t)state_in[i], (float)px_in[i], (float)py_in[i],
               rgb);
+  out[3 * i + 0] = rgb[0];
+  out[3 * i + 1] = rgb[1];
+  out[3 * i + 2] = rgb[2];
+}
+
+// The BVH variant: shared memory takes the tables without their triangles
+// (bvh_shared_float), tables points at the flat tables sph | quad | tri |
+// light in global memory and view at the 16 floats of the camera.  Left
+// to its own budget ptxas fits it in 72 registers with 8 bytes of spills
+// (7 blocks of 128 threads an SM); on the 81,920-triangle icosphere at
+// 512x512 that measured 0.644 ms a frame, a budget of 8 blocks (64
+// registers, 40 bytes of spills) 0.641, of 6 (76) 0.657, of 4 (84) 0.705,
+// blocks of 256 threads 0.657 and of 64 0.681, all within one run in turns
+// (PERF.md), so the budget stays ptxas' own.
+__global__ void __launch_bounds__(128)
+megakernel_fwd_bvh_kernel(const float* __restrict__ tables,
+                          const float* __restrict__ view,
+                          const float* __restrict__ rows,
+                          const float* __restrict__ tris,
+                          const int* __restrict__ state_in,
+                          const int* __restrict__ px_in,
+                          const int* __restrict__ py_in,
+                          float* __restrict__ out, Params p) {
+  extern __shared__ float smem[];
+  const Params ps = bvh_shared_params(p);
+  const int n_floats = table_floats(ps);
+  for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
+    smem[k] = bvh_shared_float(p, tables, view, k);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < scene_invariants(ps); k += blockDim.x) {
+    prepare_scene(ps, smem, k);
+  }
+  __syncthreads();
+  const Tables<const float> S = bvh_tables_at(smem, p, tables);
+  const BvhTris walk = {rows, tris};
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  float rgb[3];
+  trace_pixel(p, S, (uint32_t)state_in[i], (float)px_in[i], (float)py_in[i],
+              rgb, walk);
   out[3 * i + 0] = rgb[0];
   out[3 * i + 1] = rgb[1];
   out[3 * i + 2] = rgb[2];
@@ -95,5 +154,40 @@ extern "C" int tpt_megakernel_fwd(
   megakernel_fwd_kernel<<<blocks, threads, smem_bytes,
                           (cudaStream_t)stream>>>(tables, state, px, py, out,
                                                   p);
+  return (int)cudaGetLastError();
+}
+
+// The BVH variant's entry point: the flat tables sph | quad | tri | light,
+// the view matrix [16] apart, the BVH's node rows [R, 16] and triangle rows
+// [n_tri, 12] (kernels/traversal.py pack_bvh), then tpt_megakernel_fwd's
+// arguments.  Returns cudaGetLastError() of the launch.
+extern "C" int tpt_megakernel_fwd_bvh(
+    const float* tables, const float* view, const float* rows,
+    const float* tris, int n_sph, int n_quad, int n_tri, const int* state,
+    const int* px, const int* py, float* out, int n, int spp,
+    int max_bounces, int grid_n, int use_nee, int has_volumes,
+    int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
+    float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
+    float w, float h, float sub_scale, float inv_spp, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const Params p = {n_sph,   n_quad,     n_tri,   n,       spp,
+                    max_bounces, grid_n, use_nee, has_volumes,
+                    rr_start_bounce,     t_min,   t_max,   inf,
+                    p_light, bg_r,       bg_g,    bg_b,    aspect,
+                    fov_factor,          w,       h,       sub_scale,
+                    inv_spp};
+  const size_t smem_bytes =
+      sizeof(float) * (size_t)scene_floats(bvh_shared_params(p));
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        megakernel_fwd_bvh_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  megakernel_fwd_bvh_kernel<<<blocks, threads, smem_bytes,
+                              (cudaStream_t)stream>>>(
+      tables, view, rows, tris, state, px, py, out, p);
   return (int)cudaGetLastError();
 }

@@ -318,12 +318,41 @@ struct Hit {
   float vol_u;  // the uniform that placed a volume event
 };
 
+// find_hit's triangle search over the tables' triangles in shared memory,
+// every one in index order (scenes of at most MAX_MEGAKERNEL_TRIS
+// triangles; kernels/megakernel.py).  bvh_walk.cuh's BvhTris walks a
+// scene's BVH instead.  closest() merges its hit into h; test() is
+// triangle k's test, for the barycentrics of the shading normal.
+struct SharedTris {
+  static constexpr bool kGlobalRows = false;
+
+  TPT_HD void closest(const Params& p, const Tables<const float>& S, V3 o,
+                      V3 d, Hit& h) const {
+    for (int k = 0; k < p.n_tri; ++k) {
+      float tt, uu, vv, ww;
+      const bool okt = triangle_test(p, S, k, o, d, tt, uu, vv, ww);
+      const float ttt = okt ? tt : p.inf;
+      if (ttt < h.t) {
+        h.t = ttt;
+        h.kind = K_TRI;
+        h.idx = k;
+      }
+    }
+  }
+
+  TPT_HD bool test(const Params& p, const Tables<const float>& S, int k, V3 o,
+                   V3 d, float& tt, float& uu, float& vv, float& ww) const {
+    return triangle_test(p, S, k, o, d, tt, uu, vv, ww);
+  }
+};
+
 // Closest hit (kernels/hit.py find_hit): solid spheres, one-sided quads,
-// triangles, then the volumetric pass clipped by the running closest
-// distance, drawing one uniform per sphere in sphere order.  Strict <
-// keeps the earlier primitive on ties.
+// triangles (tris' search), then the volumetric pass clipped by the
+// running closest distance, drawing one uniform per sphere in sphere
+// order.  Strict < keeps the earlier primitive on ties.
+template <class Tris = SharedTris>
 TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
-                    uint32_t& state) {
+                    uint32_t& state, const Tris& tris = Tris()) {
   const float t_min = p.t_min, t_max = p.t_max, inf = p.inf;
   Hit h;
   h.t = inf;
@@ -372,16 +401,7 @@ TPT_HD Hit find_hit(const Params& p, const Tables<const float>& S, V3 o, V3 d,
     }
   }
 
-  for (int k = 0; k < p.n_tri; ++k) {
-    float tt, uu, vv, ww;
-    const bool okt = triangle_test(p, S, k, o, d, tt, uu, vv, ww);
-    const float ttt = okt ? tt : inf;
-    if (ttt < h.t) {
-      h.t = ttt;
-      h.kind = K_TRI;
-      h.idx = k;
-    }
-  }
+  tris.closest(p, S, o, d, h);
 
   if (p.has_volumes) {
     const float ray_len = sqrtf(fmaxf(a, 1e-20f));
@@ -481,14 +501,16 @@ TPT_HD V3 hit_point(V3 o, V3 d, float t) {
 }
 
 // Unflipped shading normal of the winner at hit point hp.
+template <class Tris = SharedTris>
 TPT_HD V3 hit_normal(const Params& p, const Tables<const float>& S,
-                     const Hit& h, V3 o, V3 d, V3 hp) {
+                     const Hit& h, V3 o, V3 d, V3 hp,
+                     const Tris& tris = Tris()) {
   if (h.kind == K_QUAD) return load3(S.quad + h.idx * QUAD_COLS + 9);
   if (h.kind == K_TRI) {
     // Smooth barycentric shading normal (common.wgsl:230).
     const float* T = S.tri + h.idx * TRI_COLS;
     float tt, uu, vv, ww;
-    triangle_test(p, S, h.idx, o, d, tt, uu, vv, ww);
+    tris.test(p, S, h.idx, o, d, tt, uu, vv, ww);
     return norm3(v3(T[9] * ww + T[12] * uu + T[15] * vv,
                     T[10] * ww + T[13] * uu + T[16] * vv,
                     T[11] * ww + T[14] * uu + T[17] * vv));
@@ -502,15 +524,21 @@ TPT_HD V3 hit_normal(const Params& p, const Tables<const float>& S,
 }
 
 // The bounce of a lane whose hit search found h, from ray (o, d) with
-// throughput thr; draws the bounce's tail from state.
+// throughput thr; draws the bounce's tail from state.  A triangle's row is
+// read at S.tri where tris keeps the triangle rows apart from the other
+// tables (BvhTris), else at its offset from S.sph.
+template <class Tris = SharedTris>
 TPT_HD void shade(const Params& p, const Tables<const float>& S, const Hit& h,
-                  V3 o, V3 d, const float thr[3], uint32_t& state, Shade& s) {
+                  V3 o, V3 d, const float thr[3], uint32_t& state, Shade& s,
+                  const Tris& tris = Tris()) {
   s.hp = hit_point(o, d, h.t);
-  V3 n = hit_normal(p, S, h, o, d, s.hp);
+  V3 n = hit_normal(p, S, h, o, d, s.hp, tris);
   s.front = (dot3(d, n) < 0.0f) || (h.kind == K_VOLUME);
   if (!s.front) n = v3(-n.x, -n.y, -n.z);
   s.n = n;
-  const float* mat = S.sph + hit_mat_offset(p, h);
+  const float* mat = (Tris::kGlobalRows && h.kind == K_TRI)
+                         ? S.tri + h.idx * TRI_COLS + TRI_MAT
+                         : S.sph + hit_mat_offset(p, h);
   s.mat = mat;
 
   // ---- material_scatter: all 8 uniforms are drawn in order, only the
@@ -705,8 +733,10 @@ TPT_HD void camera_ray(const Params& p, const float* cam, int smp,
 }
 
 // The forward trace of one pixel: radiance averaged over its samples.
+template <class Tris = SharedTris>
 TPT_HD void trace_pixel(const Params& p, const Tables<const float>& S,
-                        uint32_t state, float pxf, float pyf, float out[3]) {
+                        uint32_t state, float pxf, float pyf, float out[3],
+                        const Tris& tris = Tris()) {
   const V3 eye = v3(S.cam[3], S.cam[7], S.cam[11]);
   const int dpb = draws_per_bounce(p);
   float acc[3] = {0.0f, 0.0f, 0.0f};
@@ -721,7 +751,7 @@ TPT_HD void trace_pixel(const Params& p, const Tables<const float>& S,
     for (int bounce = 0; bounce < p.max_bounces; ++bounce) {
       const uint32_t later_draws =
           (uint32_t)(p.max_bounces - bounce - 1) * (uint32_t)dpb;
-      const Hit h = find_hit(p, S, o, d, state);
+      const Hit h = find_hit(p, S, o, d, state, tris);
       if (h.kind == K_MISS) {
         // Miss: background * throughput, the path ends
         // (traceRay.wgsl:12-16).
@@ -732,7 +762,7 @@ TPT_HD void trace_pixel(const Params& p, const Tables<const float>& S,
         break;
       }
       Shade s;
-      shade(p, S, h, o, d, thr, state, s);
+      shade(p, S, h, o, d, thr, state, s, tris);
       // Front-face emission only (traceRay.wgsl:18-22).
       if (s.front) {
         for (int k = 0; k < 3; ++k) rad[k] = rad[k] + s.mat[M_EMI + k] * thr[k];

@@ -13,7 +13,10 @@
 //
 // The contract is the plain version's (kernels/traversal.py
 // bvh_closest_hit), a skip-link walk over the flattened DFS-preorder BVH,
-// to the bit: the same triangle index on every lane and the same t.
+// to the bit: the same triangle index on every lane and the same t.  The
+// walk itself (stack_walk, its tables' layout and its tie rule) is in
+// bvh_walk.cuh, which the forward megakernel's hit search over a BVH scene
+// calls too (megakernel_fwd.cu).
 //
 // What bounds it on this card: the latency of dependent loads.  A ray's
 // next fetch depends on the box tests of the last one, the tables (5.2 MB
@@ -23,17 +26,10 @@
 // different length in one warp diverge.  The design cuts the number of
 // dependent fetches and the work per fetch:
 //
-//   * an ordered stack walk: at an interior node both children's boxes are
-//     tested, the nearer is visited and the farther pushed (the left child
-//     first when the entries are equal).  Front to back, a ray that hits
+//   * an ordered stack walk, front to back (bvh_walk.cuh): a ray that hits
 //     finds its hit early and its running best then culls the boxes behind
-//     it, where the skip-link walk visits, in preorder, every node whose
-//     box the ray enters below the best so far.  A popped child's children
-//     are tested at the running best when its row is read, so the entry is
-//     not tested again (keeping the entry distances on the stack to drop
-//     entries on pop measured slower, PERF.md).  The stack is a fixed
-//     array of references in the thread (local memory, cached in L1),
-//     STACK_DEPTH entries; the packer refuses a deeper tree;
+//     it (keeping the entry distances on the stack to drop entries on pop
+//     measured slower, PERF.md);
 //   * child-pair node rows: the row of an interior node holds both
 //     children's boxes and references, 64 bytes read as four 16-byte loads,
 //     so one dependent fetch feeds two slab tests.  Row 0 holds the root as
@@ -42,195 +38,19 @@
 //   * precomputed triangle rows: a and the edges ab, ac and normal ab x ac
 //     (tracer.cuh triangle_edges), 48 bytes read as three 16-byte loads and
 //     tested with triangle_mt_pre, which rounds as triangle_mt does.  The
-//     rows are written by bvh_pack_kernel on every call (the refit moves the
-//     bounds every training step) with the same expressions.
-//
-// Ties.  The DFS-preorder leaves hold ascending, contiguous triangle ranges
-// (accel/bvh.py finish), so the skip-link walk meets triangles in index
-// order and its strict `<` keeps the least index among equal t.  Call a
-// box entered at bound T when its slab interval [lo, far] has far > lo and
-// min(T, far) > lo (no NaN slab).  Suppose, as holds unless rounding puts a
-// box's entry behind a hit inside it, that every box holding a triangle
-// hit at t has lo <= t.  Let t* be the least hit t among triangles whose
-// boxes all have far > lo, and k* the least index with t*.  The skip-link
-// walk reaches k* with a bound above t* (every triangle before k* in index
-// order hits later or not at all), enters its boxes and keeps it; nothing
-// after beats it.  The stack walk's bound never drops below t*, and
-// reaches t* only through a tie k > k*.  So it enters each box of k* unless
-// that box's entry is exactly t_best = t*, a tie on the box's face, and
-// there the strict test would cull k*.  Hence the rule of box_enter: a box
-// whose entry equals t_best is entered when its subtree's first triangle
-// index is below the best index so far (the strict test is kept
-// otherwise), and a triangle is accepted when tt < t_best or tt == t_best
-// with a lower index.  Entering more boxes than needed never changes the
-// answer (a popped leaf is tested without its box).  Both walks then
-// return (t*, k*).  tests/test_torch_traversal.py holds this
-// on meshes whose hits all tie (an icosphere and an axis-aligned cube, each
-// added twice) for every builder.
-//
-// Rounding follows the references: 1/d and every product IEEE-rounded
-// (built without --use_fast_math, with --fmad=false), and the slab test
-// lets NaN (0 * inf with the origin on a box plane) reject the box.
+//     rows are written by bvh_pack_kernel (the refit moves the bounds every
+//     training step) with the same expressions.
 //
 // Built without nvcc (a plain C++ compiler), this file compiles the walk
 // and the packing for the CPU, with host entry points that drive them (the
 // CPU tests, and the work counts of chip_smoke.py's bound), and leaves out
 // the kernels and their entry points.
 
-#include "tracer.cuh"
+#include <vector>
 
-#include <string.h>
+#include "bvh_walk.cuh"
 
 namespace tpt {
-
-// The packed tables (kernels/traversal.py pack_bvh).  A node row: the left
-// child's box (min xyz, max xyz), the right child's box, then four ints:
-// left first triangle, left reference, right first triangle, right
-// reference.  A reference >= 0 is the row of an interior child; a leaf's is
-// ~(first << LEAF_BITS | count - 1).
-constexpr int NODE_ROW = 16;
-constexpr int NODE_REFS = 12;
-constexpr int TRI_ROW = 12;  // a xyz, then triangle_edges: ab, ac, nt
-constexpr int LEAF_BITS = 5;
-constexpr int LEAF_MAX = 1 << LEAF_BITS;
-constexpr int STACK_DEPTH = 64;
-constexpr int QUIET_NAN = 0x7fc00000;
-
-struct F4 {
-  float x, y, z, w;
-};
-
-// 16 bytes at p (16-byte aligned) through the read-only cache.
-TPT_HD F4 load4(const float* p) {
-#ifdef __CUDA_ARCH__
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  const F4 r = {v.x, v.y, v.z, v.w};
-#else
-  const F4 r = {p[0], p[1], p[2], p[3]};
-#endif
-  return r;
-}
-
-TPT_HD int as_int(float x) {
-#ifdef __CUDA_ARCH__
-  return __float_as_int(x);
-#else
-  int i;
-  memcpy(&i, &x, sizeof i);
-  return i;
-#endif
-}
-
-TPT_HD float as_float(int i) {
-#ifdef __CUDA_ARCH__
-  return __int_as_float(i);
-#else
-  float x;
-  memcpy(&x, &i, sizeof x);
-  return x;
-#endif
-}
-
-TPT_HD bool is_nan(float x) { return x != x; }
-
-// The slab test of kernels/intersect.py aabb_hit on a box (min xyz, max
-// xyz) at the running best, with the tie rule of the note above: entered
-// when far > lo and t_best > lo, or t_best == lo and the subtree's first
-// triangle is below the best index.  torch.minimum and amax propagate NaN,
-// so there a NaN slab makes the box miss; fminf/fmaxf would drop the NaN,
-// hence the explicit check.  lo receives the box's entry.
-TPT_HD bool box_enter(float x0, float y0, float z0, float x1, float y1,
-                      float z1, V3 o, V3 inv, float t_min, float t_best,
-                      int first, int idx, float& lo) {
-  const float t0x = (x0 - o.x) * inv.x;
-  const float t0y = (y0 - o.y) * inv.y;
-  const float t0z = (z0 - o.z) * inv.z;
-  const float t1x = (x1 - o.x) * inv.x;
-  const float t1y = (y1 - o.y) * inv.y;
-  const float t1z = (z1 - o.z) * inv.z;
-  if (is_nan(t0x) || is_nan(t0y) || is_nan(t0z) || is_nan(t1x) ||
-      is_nan(t1y) || is_nan(t1z)) {
-    return false;
-  }
-  lo = fmaxf(t_min, fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                          fminf(t0z, t1z)));
-  const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fmaxf(t0z, t1z));
-  return far > lo && (t_best > lo || (t_best == lo && first < idx));
-}
-
-// What a walk does, for the bound's count: node rows fetched (two slab
-// tests each) and triangle tests.  The kernel counts nothing.
-struct NoWork {
-  TPT_HD void row() {}
-  TPT_HD void tri() {}
-};
-
-struct Work {
-  long long rows, tris;
-  TPT_HD void row() { ++rows; }
-  TPT_HD void tri() { ++tris; }
-};
-
-// One ray's walk over node rows [R, NODE_ROW] and triangle rows
-// [T, TRI_ROW].  Writes t (inf on a miss) and the triangle index (-1).
-template <class W>
-TPT_HD void stack_walk(const float* rows, const float* tris, V3 o, V3 d,
-                       float t_min, float t_best0, float inf, float& t_out,
-                       int& idx_out, W& work) {
-  const V3 inv = v3(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
-  float t_best = t_best0;
-  int idx = -1;
-  int stack[STACK_DEPTH];
-  int sp = 0;
-  int ref = 0;
-  for (;;) {
-    if (ref >= 0) {
-      const float* R = rows + NODE_ROW * ref;
-      const F4 p = load4(R), q = load4(R + 4), r = load4(R + 8),
-               s = load4(R + NODE_REFS);
-      work.row();
-      float lo_l, lo_r;
-      const bool hit_l = box_enter(p.x, p.y, p.z, p.w, q.x, q.y, o, inv,
-                                   t_min, t_best, as_int(s.x), idx, lo_l);
-      const bool hit_r = box_enter(q.z, q.w, r.x, r.y, r.z, r.w, o, inv,
-                                   t_min, t_best, as_int(s.z), idx, lo_r);
-      const int ref_l = as_int(s.y), ref_r = as_int(s.w);
-      if (hit_l && hit_r) {
-        const bool right_first = lo_r < lo_l;
-        stack[sp++] = right_first ? ref_l : ref_r;
-        ref = right_first ? ref_r : ref_l;
-        continue;
-      }
-      if (hit_l || hit_r) {
-        ref = hit_l ? ref_l : ref_r;
-        continue;
-      }
-    } else {
-      const int leaf = ~ref;
-      const int first = leaf >> LEAF_BITS;
-      const int end = first + (leaf & (LEAF_MAX - 1)) + 1;
-      for (int k = first; k < end; ++k) {
-        const float* T = tris + TRI_ROW * k;
-        const F4 p = load4(T), q = load4(T + 4), r = load4(T + 8);
-        const float E[TRI_PRE] = {p.w, q.x, q.y, q.z, q.w,
-                                  r.x, r.y, r.z, r.w};
-        work.tri();
-        float tt, uu, vv, ww;
-        if (triangle_mt_pre(v3(p.x, p.y, p.z), E, o, d, t_min, t_best, tt,
-                            uu, vv, ww) &&
-            (tt < t_best || (tt == t_best && k < idx))) {
-          t_best = tt;
-          idx = k;
-        }
-      }
-    }
-    if (sp == 0) break;
-    ref = stack[--sp];
-  }
-  t_out = idx >= 0 ? t_best : inf;
-  idx_out = idx;
-}
 
 // The FlatBVH fields the packing reads (core/types.py), int64 as torch
 // keeps them; row_of[n] is the row of interior node n.
@@ -338,6 +158,41 @@ extern "C" void tpt_bvh_walk_host(const float* origin, const float* direction,
   if (work) {
     work[0] += w.rows;
     work[1] += w.tris;
+  }
+}
+
+// The forward megakernel's BVH variant on the CPU (megakernel_fwd.cu
+// megakernel_fwd_bvh_kernel, with the arguments of tpt_megakernel_fwd_bvh):
+// what each block does to its shared memory, then trace_pixel through the
+// walk for every pixel.
+extern "C" void tpt_megakernel_fwd_bvh_host(
+    const float* tables, const float* view, const float* rows,
+    const float* tris, int n_sph, int n_quad, int n_tri, const int* state,
+    const int* px, const int* py, float* out, int n, int spp,
+    int max_bounces, int grid_n, int use_nee, int has_volumes,
+    int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
+    float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
+    float w, float h, float sub_scale, float inv_spp) {
+  const tpt::Params p = {n_sph,   n_quad,     n_tri,   n,       spp,
+                         max_bounces, grid_n, use_nee, has_volumes,
+                         rr_start_bounce,     t_min,   t_max,   inf,
+                         p_light, bg_r,       bg_g,    bg_b,    aspect,
+                         fov_factor,          w,       h,       sub_scale,
+                         inv_spp};
+  const tpt::Params ps = tpt::bvh_shared_params(p);
+  std::vector<float> shared(tpt::scene_floats(ps));
+  for (int k = 0; k < tpt::table_floats(ps); ++k) {
+    shared[k] = tpt::bvh_shared_float(p, tables, view, k);
+  }
+  for (int k = 0; k < tpt::scene_invariants(ps); ++k) {
+    tpt::prepare_scene(ps, shared.data(), k);
+  }
+  const tpt::Tables<const float> S =
+      tpt::bvh_tables_at(shared.data(), p, tables);
+  const tpt::BvhTris walk = {rows, tris};
+  for (int i = 0; i < n; ++i) {
+    tpt::trace_pixel(p, S, (uint32_t)state[i], (float)px[i], (float)py[i],
+                     out + 3 * i, walk);
   }
 }
 

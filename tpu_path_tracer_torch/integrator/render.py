@@ -63,12 +63,14 @@ def path_trace_pixels(rand_state, view_matrix, px, py, scene: SceneData,
     With ``cfg.use_megakernel`` set and a scene the kernel supports, the
     whole trace is one launch of the CUDA megakernel, and its gradient one
     launch of the backward kernel (``kernels.megakernel``; on CPU tensors
-    their plain version, this wavefront under autograd).  That route
-    returns the caller's ``rand_state`` unchanged, as in the JAX package:
-    callers reseed every frame from (pixel, frame)."""
+    their plain version, this wavefront under autograd).  A BVH scene above
+    64 triangles takes it only without gradients (``mk.routes``): the
+    backward does not cover it.  That route returns the caller's
+    ``rand_state`` unchanged, as in the JAX package: callers reseed every
+    frame from (pixel, frame)."""
     from ..kernels import megakernel as mk
 
-    if cfg.use_megakernel and mk.supported(scene, meta, cfg):
+    if cfg.use_megakernel and mk.routes(scene, meta, cfg, view_matrix):
         radiance = mk.path_trace_pixels_megakernel(
             rand_state, view_matrix, px, py, scene, meta, cfg)
         return rand_state, radiance

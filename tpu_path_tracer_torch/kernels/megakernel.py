@@ -17,11 +17,24 @@ shading and Russian roulette, so ray state never leaves registers.
   (:func:`fold_rows`) folds the rows in a fixed order, so the gradients
   have the same bits every run, as the JAX kernel's sequential grid gives.
 
+Routing by scene: the forward kernel takes spheres, quads and at most
+``MAX_MEGAKERNEL_TRIS`` triangles, tested one by one from shared memory;
+and, in a second instantiation (``megakernel_fwd_bvh_kernel``), a scene
+with a BVH above that, whose hit search walks the BVH as the traversal
+kernel does (``csrc/bvh_walk.cuh``), so a mesh frame is one launch.  The
+backward covers only the first kind: ``integrator.render`` sends a BVH
+scene through this route only when no gradients are wanted
+(:func:`routes`), and training on it keeps the wavefront.  Scenes of 65 to
+256 triangles (the builder's brute-force sweep, no BVH) keep the
+wavefront.
+
 Without gradients, the CUDA route packs a scene's tables once and reuses
 the flat buffer while the scene's tensors are unchanged
-(:func:`_scene_tables`); each frame adds only the view matrix.  A write
-that leaves a tensor's version counter as it was goes unseen: call
-:func:`clear_table_cache` after one.
+(:func:`_scene_tables`); each frame adds only the view matrix (apart, on
+the BVH route, so that no frame copies the triangle table).  The BVH's
+node and triangle rows are packed with the tables and kept beside them; a
+refit or an edit repacks.  A write that leaves a tensor's version counter
+as it was goes unseen: call :func:`clear_table_cache` after one.
 
 Their contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw
 the same PCG stream and bounce algebra as the wavefront integrator, which
@@ -56,7 +69,8 @@ TRI_COLS = 31
 LIGHT_COLS = 9
 CAM_COLS = 16
 # The triangle loop is a plain loop over shared memory; this bound keeps
-# the JAX package's routing (megakernel.py:161).
+# the JAX package's routing (megakernel.py:161).  Above it a scene with a
+# BVH takes the forward kernel's BVH variant.
 MAX_MEGAKERNEL_TRIS = 64
 # Dynamic shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -98,6 +112,15 @@ def bwd_smem_bytes(scene: SceneData) -> int:
                   + scene.spheres.count * SPH_PRE + LIGHT_PRE)
     return 4 * ((1 + BWD_WARPS) * _table_floats(scene) + invariants
                 + SLOT_FLOATS * (BWD_THREADS + 1))
+
+
+def fwd_bvh_smem_bytes(scene: SceneData) -> int:
+    """Dynamic shared memory of a block of the forward kernel's BVH
+    variant: the tables without their triangles and their invariants
+    (``scene_floats`` of ``bvh_shared_params`` in ``csrc/bvh_walk.cuh``)."""
+    return 4 * (scene.spheres.count * (SPH_COLS + SPH_PRE)
+                + scene.quads.count * QUAD_COLS + LIGHT_COLS + CAM_COLS
+                + LIGHT_PRE)
 
 
 def _mat_cols(materials, mid):
@@ -148,21 +171,42 @@ def resolved_spp(cfg: RenderConfig) -> int:
             if cfg.stratify else cfg.samples_per_pixel)
 
 
+def walks_bvh(scene: SceneData, meta: SceneMeta) -> bool:
+    """Whether the forward kernel's hit search walks the scene's BVH for
+    its triangles: a BVH scene above ``MAX_MEGAKERNEL_TRIS`` triangles."""
+    return (scene.triangles.count > MAX_MEGAKERNEL_TRIS
+            and meta.traversal == "bvh" and scene.bvh is not None)
+
+
 def supported(scene: SceneData, meta: SceneMeta, cfg: RenderConfig) -> bool:
-    """Whether the megakernel covers this scene: spheres, quads and at most
-    ``MAX_MEGAKERNEL_TRIS`` triangles, and at least one primitive."""
-    return (scene.triangles.count <= MAX_MEGAKERNEL_TRIS
+    """Whether the forward megakernel covers this scene: spheres, quads and
+    at most ``MAX_MEGAKERNEL_TRIS`` triangles, or any number through the
+    scene's BVH (:func:`walks_bvh`); and at least one primitive."""
+    return ((scene.triangles.count <= MAX_MEGAKERNEL_TRIS
+             or walks_bvh(scene, meta))
             and (scene.spheres.count + scene.quads.count
                  + scene.triangles.count) > 0)
 
 
 def vjp_supported(scene: SceneData, meta: SceneMeta,
                   cfg: RenderConfig) -> bool:
-    """Whether the differentiable megakernel route applies: the JAX
+    """Whether the differentiable megakernel route applies: the backward
+    kernel takes at most ``MAX_MEGAKERNEL_TRIS`` triangles, and the JAX
     backward kernel unrolls ``max_bounces * spp`` bounce bodies, so deep
     configurations keep the wavefront (megakernel.py:756-762)."""
     return (supported(scene, meta, cfg)
+            and scene.triangles.count <= MAX_MEGAKERNEL_TRIS
             and cfg.max_bounces * resolved_spp(cfg) <= MAX_UNROLL_BOUNCES)
+
+
+def routes(scene: SceneData, meta: SceneMeta, cfg: RenderConfig,
+           view_matrix) -> bool:
+    """Whether ``integrator.render.path_trace_pixels`` hands this render to
+    the megakernel (with ``cfg.use_megakernel`` set): a scene it supports,
+    and, for a scene whose BVH it walks, no gradients wanted, since the
+    backward does not cover it; training there keeps the wavefront."""
+    return supported(scene, meta, cfg) and not (
+        walks_bvh(scene, meta) and _wants_grad(scene, view_matrix))
 
 
 def path_trace_pixels_reference(rand_state, view_matrix, px, py,
@@ -207,30 +251,33 @@ def clear_table_cache():
     _packed.clear()
 
 
-def _stamps(scene: SceneData):
-    """The tensors ``pack_tables`` reads from ``scene``, and each one's
+def _stamps(scene: SceneData, bvh: bool):
+    """The tensors ``pack_tables`` reads from ``scene`` (and, with ``bvh``,
+    those of its BVH, which ``traversal.pack_bvh`` reads), and each one's
     version counter and storage; (None, None) where a tensor keeps no
     version counter (an inference tensor) or may be written without
     bumping it: a tensor that requires grad is a parameter, and a fused
     optimizer step (``Adam(fused=True)``) leaves its version as it was.
     Under ``no_grad`` a preview renders such parameters without a graph,
     so the route's own test for gradients does not answer this one."""
-    tensors = [t for g in (scene.materials, scene.spheres, scene.quads,
-                           scene.triangles) for t in g]
+    groups = (scene.materials, scene.spheres, scene.quads, scene.triangles)
+    tensors = [t for g in groups + ((scene.bvh,) if bvh else ()) for t in g]
     if any(t.is_inference() or t.requires_grad for t in tensors):
         return None, None
     return tensors, [(t._version, t.data_ptr()) for t in tensors]
 
 
-def _scene_tables(scene: SceneData, device):
+def _scene_tables(scene: SceneData, device, bvh: bool = False):
     """The scene's tables ``(sph, quad, tri, light)`` flattened into one
-    float32 buffer on ``device``.  Packed on a miss, and reused while the
-    scene holds the same tensor objects at the same versions and storage,
-    with the same light, on the same stream: an edit in place bumps a
-    tensor's version and repacks, and so does a new scene with equal
-    values."""
-    key = (torch.cuda.current_stream(device).cuda_stream, scene.light_index)
-    tensors, stamps = _stamps(scene)
+    float32 buffer on ``device``, in a tuple; with ``bvh``, followed by the
+    BVH's node and triangle rows (``traversal.pack_bvh``).  Packed on a
+    miss, and reused while the scene holds the same tensor objects at the
+    same versions and storage, with the same light, on the same stream: an
+    edit in place bumps a tensor's version and repacks, and so does a new
+    scene with equal values, or a refit's new bounds."""
+    key = (torch.cuda.current_stream(device).cuda_stream, scene.light_index,
+           bvh)
+    tensors, stamps = _stamps(scene, bvh)
     held = _packed.get(device)
     if (held is not None and stamps is not None and held[0] == key
             and held[2] == stamps and all(map(operator.is_, held[1],
@@ -238,12 +285,17 @@ def _scene_tables(scene: SceneData, device):
         profiling.count("table_cache_hits")
         return held[3]
     flat = torch.cat([t.reshape(-1) for t in pack_tables(scene)])
-    flat = flat.to(device=device, dtype=torch.float32)
+    packed = (flat.to(device=device, dtype=torch.float32),)
+    if bvh:
+        from . import traversal
+
+        packed += tuple(t.to(device) for t in traversal.pack_bvh(
+            scene.bvh, scene.triangles))
     if stamps is None:
         _packed.pop(device, None)
     else:
-        _packed[device] = (key, tensors, stamps, flat)
-    return flat
+        _packed[device] = (key, tensors, stamps, packed)
+    return packed
 
 
 def _wants_grad(scene: SceneData, view_matrix) -> bool:
@@ -254,6 +306,19 @@ def _wants_grad(scene: SceneData, view_matrix) -> bool:
     return view_matrix.requires_grad or any(
         t.requires_grad for g in groups for t in g
         if isinstance(t, torch.Tensor))
+
+
+def _check_backward(scene: SceneData, meta: SceneMeta, cfg: RenderConfig):
+    """Raise where the backward kernel cannot take the render: a scene
+    whose BVH the forward walks, or a configuration over the unroll
+    budget."""
+    if walks_bvh(scene, meta):
+        raise NotImplementedError(
+            f"the megakernel backward takes at most {MAX_MEGAKERNEL_TRIS} "
+            f"triangles, not a BVH scene of {scene.triangles.count}; "
+            f"integrator.render.path_trace_pixels sends training on it "
+            f"through the wavefront")
+    _check_unroll_budget(cfg)
 
 
 def _check_unroll_budget(cfg: RenderConfig):
@@ -310,13 +375,26 @@ def _bind(lib):
     return fwd, bwd, fold
 
 
+def _pixels(rand_state, px, py):
+    """The int32 state and pixel coordinates every kernel reads."""
+    device = px.device
+    n = px.shape[0]
+    for name, t in (("rand_state", rand_state), ("px", px), ("py", py)):
+        if t.device != device or t.shape != (n,):
+            raise ValueError(f"{name} must be [{n}] on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    return _int32(rand_state), _int32(px), _int32(py)
+
+
+def _counts(scene: SceneData):
+    return (scene.spheres.count, scene.quads.count, scene.triangles.count)
+
+
 def _prepare(rand_state, px, py, tables, scene: SceneData):
     """Device buffers both kernels read: the flat tables and the int32
     state and pixel coordinates."""
-    device = px.device
-    n = px.shape[0]
     flat = torch.cat([t.detach().reshape(-1) for t in tables])
-    flat = flat.to(device=device, dtype=torch.float32).contiguous()
+    flat = flat.to(device=px.device, dtype=torch.float32).contiguous()
     smem = bwd_smem_bytes(scene)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"megakernel scene tables take {flat.numel() * 4} "
@@ -324,12 +402,7 @@ def _prepare(rand_state, px, py, tables, scene: SceneData):
                          f"invariants, their gradients and its threads' "
                          f"slots in {smem} bytes of shared memory, at most "
                          f"{MAX_SMEM_BYTES} bytes a block may use")
-    for name, t in (("rand_state", rand_state), ("px", px), ("py", py)):
-        if t.device != device or t.shape != (n,):
-            raise ValueError(f"{name} must be [{n}] on {device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-    counts = (scene.spheres.count, scene.quads.count, scene.triangles.count)
-    return flat, counts, _int32(rand_state), _int32(px), _int32(py)
+    return (flat, _counts(scene), *_pixels(rand_state, px, py))
 
 
 def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
@@ -348,6 +421,37 @@ def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     profiling.count("megakernel_fwd")
+    return out
+
+
+def _bind_bvh(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.tpt_megakernel_fwd_bvh
+    if fn.argtypes is None:
+        fn.argtypes = [p] * 4 + [i] * 3 + [p] * 4 + [i] * 7 + [f] * 13 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fwd_bvh(packed, view, state, px32, py32, scene, meta, cfg):
+    """Launch the forward kernel's BVH variant on the current stream with
+    the scene's packed buffers ``(flat tables, node rows, triangle rows)``
+    and the view matrix apart; returns ``[N, 3]``."""
+    from . import _build
+
+    with profiling.span("megakernel.launch"):
+        flat, rows, tri_rows = packed
+        n = px32.shape[0]
+        out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
+        stream = torch.cuda.current_stream(px32.device).cuda_stream
+        fwd = _bind_bvh(_build.load())
+        err = fwd(flat.data_ptr(), view.data_ptr(), rows.data_ptr(),
+                  tri_rows.data_ptr(), *_counts(scene), state.data_ptr(),
+                  px32.data_ptr(), py32.data_ptr(), out.data_ptr(),
+                  *_scalar_args(scene, meta, cfg, n), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    profiling.count("megakernel_fwd_bvh")
     return out
 
 
@@ -457,7 +561,8 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
     CPU tensors run the plain version, the wavefront, which autograd
     differentiates; CUDA tensors launch the forward kernel, and the
     backward kernel when gradients are taken, or raise.  Asking for
-    gradients of a configuration over the unroll budget raises on both.
+    gradients of a configuration over the unroll budget, or of a scene
+    whose BVH the forward walks, raises on both.
 
     Without gradients the CUDA route reuses the scene's packed tables
     while its tensors are the same objects at the same versions: a write
@@ -467,7 +572,7 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
     device = px.device
     if device.type == "cpu":
         if _wants_grad(scene, view_matrix):
-            _check_unroll_budget(cfg)
+            _check_backward(scene, meta, cfg)
         return path_trace_pixels_reference(rand_state, view_matrix, px, py,
                                            scene, meta, cfg)
     if device.type != "cuda":
@@ -480,14 +585,17 @@ def _kernel_route(rand_state, view_matrix, px, py, scene: SceneData,
     """The CUDA route of :func:`path_trace_pixels_megakernel`: pack the
     scene's tables (with gradients wanted through differentiable ops every
     call, else once per scene), prepare the kernels' buffers, and apply the
-    autograd node that launches them."""
+    autograd node that launches them; a scene whose BVH the kernel walks
+    goes to :func:`_bvh_route`."""
     grad = _wants_grad(scene, view_matrix)
     if grad:
-        _check_unroll_budget(cfg)
+        _check_backward(scene, meta, cfg)
+    if walks_bvh(scene, meta):
+        return _bvh_route(rand_state, view_matrix, px, py, scene, meta, cfg)
     with profiling.span("megakernel.pack_tables"):
         view = view_matrix.to(torch.float32)
         tables = (pack_tables(scene) if grad
-                  else (_scene_tables(scene, px.device),)) + (view,)
+                  else _scene_tables(scene, px.device)) + (view,)
     with profiling.span("megakernel.prepare"):
         flat, counts, state, px32, py32 = _prepare(rand_state, px, py,
                                                    tables, scene)
@@ -499,3 +607,26 @@ def _kernel_route(rand_state, view_matrix, px, py, scene: SceneData,
         "shapes": [tuple(t.shape) for t in tables],
     }
     return _Megakernel.apply(launch, *tables)
+
+
+def _bvh_route(rand_state, view_matrix, px, py, scene: SceneData,
+               meta: SceneMeta, cfg: RenderConfig):
+    """The forward kernel's BVH variant, without gradients: the scene's
+    tables and BVH rows packed once per scene, the view matrix apart, and
+    one launch."""
+    with profiling.span("megakernel.pack_tables"):
+        packed = _scene_tables(scene, px.device, bvh=True)
+        view = view_matrix.detach().to(device=px.device,
+                                       dtype=torch.float32).contiguous()
+    with profiling.span("megakernel.prepare"):
+        smem = fwd_bvh_smem_bytes(scene)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"the megakernel's BVH variant holds the "
+                             f"spheres, quads, light and camera in {smem} "
+                             f"bytes of shared memory, at most "
+                             f"{MAX_SMEM_BYTES} bytes a block may use")
+        if view.shape != (4, 4):
+            raise ValueError(f"view_matrix must be [4, 4], got "
+                             f"{tuple(view.shape)}")
+        state, px32, py32 = _pixels(rand_state, px, py)
+    return _launch_fwd_bvh(packed, view, state, px32, py32, scene, meta, cfg)

@@ -109,12 +109,42 @@ def counted_work(work, scene):
         path_tracer.find_hit, intersect.volume_t = find, volume_t
 
 
+@contextlib.contextmanager
+def counted_walks(work, scene):
+    """Count the node rows fetched and the triangle tests of every BVH walk
+    of the wavefront (``traversal.closest_hit``), by the kernel's own walk
+    on the host (:func:`counted_walk`) over the rows the card packs: the
+    work of the forward megakernel's BVH variant, whose hit search makes
+    the same walks.  On CPU tensors the walk's host build counts
+    (``_build.load_host_walk``)."""
+    from ..kernels import _build, traversal
+
+    closest_hit = traversal.closest_hit
+    rows, tri_rows = traversal.pack_bvh(scene.bvh, scene.triangles)
+    lib = (_build.load_host_walk() if rows.device.type == "cpu" else None)
+
+    def counted(origin, direction, bvh, tris, t_min, t_best0):
+        _, _, n_rows, n_tests = counted_walk(rows, tri_rows, origin,
+                                             direction, t_best0, t_min, lib)
+        work["rows"] += n_rows
+        work["tri_tests"] += n_tests
+        return closest_hit(origin, direction, bvh, tris, t_min, t_best0)
+
+    traversal.closest_hit = counted
+    try:
+        yield rows.shape[0]
+    finally:
+        traversal.closest_hit = closest_hit
+
+
 def megakernel_bound(scene, meta, cfg, eye, backward):
     """Bound of one megakernel launch (``backward``: of the backward) on
     these inputs: the FP32 operations of the bounces the paths took, from
     the plain wavefront at frame 1, and the bytes of the state, pixels,
     tables and radiance (for the backward also the cotangent in and the
-    table gradients out)."""
+    table gradients out).  Where the forward walks the scene's BVH, its
+    triangle tests are the walks' (:func:`counted_walks`) and the BVH's
+    node and triangle rows are read once too."""
     from ..core import rng
     from ..core.camera import Camera
     from ..core.config import ISOTROPIC
@@ -126,7 +156,12 @@ def megakernel_bound(scene, meta, cfg, eye, backward):
     pix, px, py = pixel_grid(cfg.width, cfg.height, device)
     view = torch.as_tensor(Camera(eye=eye, center=[0, 0, 0]).view_matrix,
                            device=device)
-    with torch.no_grad(), counted_work(work, scene):
+    walks = mk.walks_bvh(scene, meta)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(counted_work(work, scene))
+        n_rows = (stack.enter_context(counted_walks(work, scene)) if walks
+                  else 0)
         mk.path_trace_pixels_reference(rng.seed(pix, 1), view, px, py,
                                        scene, meta, cfg)
     n_sph = scene.spheres.count
@@ -137,14 +172,17 @@ def megakernel_bound(scene, meta, cfg, eye, backward):
                       + n_vol * SPAN_FLOPS) if meta.has_volumes else 0)
                   + (n_sph - n_vol) * SPHERE_FLOPS
                   + scene.quads.count * QUAD_CULL_FLOPS
-                  + scene.triangles.count * MT_PRE_FLOPS
+                  + (0 if walks else scene.triangles.count * MT_PRE_FLOPS)
                   + SHADE_FLOPS
                   + (NEE_FLOPS if cfg.importance_sampling and meta.has_light
                      else 0))
     flops = (work["lanes"] * per_bounce + work["facing_quads"] * QUAD_FLOPS
              + ((work["spans"] * FLIGHT_FLOPS + work["events"] * EVENT_FLOPS)
-                if meta.has_volumes else 0))
-    table_bytes = 4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
+                if meta.has_volumes else 0)
+             + work["rows"] * ROW_FLOPS + work["tri_tests"] * MT_PRE_FLOPS)
+    table_bytes = (4 * sum(t.numel() for t in mk.pack_tables(scene)) + 64
+                   + n_rows * 64 + (scene.triangles.count * 48 if walks
+                                    else 0))
     nbytes = px.shape[0] * (3 * 4 + 3 * 4) + table_bytes
     if backward:
         flops *= BWD_FLOPS_FACTOR
@@ -152,7 +190,9 @@ def megakernel_bound(scene, meta, cfg, eye, backward):
     ms, by = bound(flops, nbytes)
     return {"bound_ms": ms, "bound_by": by, "lane_bounces": work["lanes"],
             "facing_quads": work["facing_quads"], "spans": work["spans"],
-            "events": work["events"], "flops": flops, "bytes": nbytes}
+            "events": work["events"], "walk_rows": work["rows"],
+            "walk_tri_tests": work["tri_tests"], "flops": flops,
+            "bytes": nbytes}
 
 
 def traversal_bound(n_rays, n_rows, n_tris, work):

@@ -210,7 +210,10 @@ def count(name: str, n: int = 1):
     for the device), "table_packs" (``megakernel.pack_tables``),
     "table_cache_hits" (a frame that reused the megakernel's packed
     tables), "wavefront_bounces" (a bounce of the wavefront integrator)
-    and the launches of each CUDA kernel under the kernel's name."""
+    and the launches of each CUDA kernel under the kernel's name:
+    "megakernel_fwd", and "megakernel_fwd_bvh" for the forward kernel's
+    BVH variant (a frame of a BVH scene through the megakernel), among
+    them."""
     _counts[name] += n
 
 
