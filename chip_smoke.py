@@ -96,8 +96,8 @@ Phases, each printed on its own line; any failure exits non-zero:
     emission kernels' and the rest of the call's device time and call
     times, with the card's emission and with the torch emission, and the
     BVH kernel's time beside them;
-16. pair_main_path: the mesh path of phase 11 with
-    ``traversal.PAIR_DISPATCH`` set to ``"pairbin"`` and to ``"pair"``:
+16. pair_main_path: the mesh path of phase 11 with ``pairbin_closest_hit``
+    and ``pair_closest_hit`` in place of ``traversal.closest_hit``:
     launch counts of all three traversal kernels and the emission's
     wrappers, every launch of one frame against the plain version on the
     launch's own arguments and every emission call against the torch
@@ -411,10 +411,12 @@ def kernel_vs_plain(torch, pt, device, scene_fn, eye, cfg, frame=3):
     from tpu_path_tracer_torch.kernels import megakernel as mk
 
     scene, meta, _ = scene_fn(device=device)
-    check(mk.supported(scene, meta, cfg), "megakernel does not support scene")
     view = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
                            device=device)
     pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    check(mk.route(scene, meta, cfg.replace(use_megakernel=True), view,
+                   px.device).tracer == mk.TABLES,
+          "megakernel does not support scene")
     state = rng.seed(pix, frame)
     got = mk.path_trace_pixels_megakernel(state, view, px, py, scene, meta,
                                           cfg)
@@ -707,10 +709,12 @@ def grad_pair(torch, pt, device, scene, meta, cfg, eye, groups, with_view,
     from tpu_path_tracer_torch.integrator.render import pixel_grid
     from tpu_path_tracer_torch.kernels import megakernel as mk
 
-    check(mk.vjp_supported(scene, meta, cfg), "no differentiable route")
     view0 = torch.as_tensor(pt.Camera(eye=eye, center=[0, 0, 0]).view_matrix,
                             device=device)
     pix, px, py = pixel_grid(cfg.width, cfg.height, device)
+    check(mk.route(scene, meta, cfg.replace(use_megakernel=True),
+                   view0.clone().requires_grad_(), px.device)
+          == mk.Route(mk.TABLES, True), "no differentiable route")
     with torch.no_grad():
         target = mk.path_trace_pixels_megakernel(rng.seed(pix, 1), view0, px,
                                                  py, scene, meta, cfg)
@@ -1452,7 +1456,7 @@ def mesh_megakernel_phase(torch, pt, device, smi, ptxas, frames=8):
     cfg = pt.RenderConfig(**MESH_KW, use_megakernel=True)
     camera = pt.Camera(eye=MESH_EYE, center=[0, 0, 0])
     view = torch.as_tensor(camera.view_matrix, device=device)
-    check(mk.walks_bvh(scene, meta) and mk.routes(scene, meta, cfg, view),
+    check(mk.route(scene, meta, cfg, view, view.device).tracer == mk.BVH,
           "the mesh scene does not take the megakernel's BVH variant")
     renderer = pt.Renderer(scene, meta, cfg, camera)
     torch.cuda.synchronize()
@@ -1909,16 +1913,18 @@ def count_syncs(torch, ps, route, fn):
 
 @contextlib.contextmanager
 def pair_dispatch(route):
-    """Route find_hit's BVH search through a pair sweep (None: the BVH
-    kernel), as a test sets ``traversal.PAIR_DISPATCH``."""
-    from tpu_path_tracer_torch.kernels import traversal
+    """Route find_hit's BVH search through a pair sweep's entry point
+    (``"pairbin"``, ``"pair"``; None: the BVH kernel) in place of
+    ``traversal.closest_hit``, as tests/test_torch_pairs.py does."""
+    from tpu_path_tracer_torch.kernels import pair_sweep, traversal
 
-    before = traversal.PAIR_DISPATCH
-    traversal.PAIR_DISPATCH = route
+    before = traversal.closest_hit
+    if route is not None:
+        traversal.closest_hit = getattr(pair_sweep, f"{route}_closest_hit")
     try:
         yield
     finally:
-        traversal.PAIR_DISPATCH = before
+        traversal.closest_hit = before
 
 
 def one_sign_tests(torch, ps, pair_dm, cid, segs, real, table):

@@ -16,11 +16,14 @@ edit to time what that edit costs.  The package's own build
 compiles every tree at once, each into a library of its own.
 
 ``--kernel megakernels`` (the default) calls the two megakernels through
-their C entry points, which every tree shares, on the same inputs packed
-by this checkout's ``kernels.megakernel``:
+their C entry points on the same inputs packed by this checkout's
+``kernels.megakernel`` (a tree before the single forward entry point takes
+the view matrix inside the tables, and its BVH variant through
+``tpt_megakernel_fwd_bvh``):
 
 * forward: ``reference_scene()`` at 512x512, 4 bounces, 1 spp, NEE off (the
-  render main path's frame);
+  render main path's frame), and the BVH variant on chip_smoke.py phase
+  12's 81,920-triangle mirror icosphere at 512x512, 4 bounces, NEE on;
 * backward: ``cornell_box()`` at 512x512, 4 bounces, NEE on (the training
   step's shapes), and ``reference_scene()`` at 512x512, 4 bounces, NEE off
   (the harness's ``fwd_bwd_reference_scene``), and the reference scene
@@ -58,8 +61,9 @@ the script prints per tree and kernel the median, minimum and maximum
 device ms per launch, with the registers, static shared memory, spills
 and stack frame ptxas reported (for the backward also the fold kernel's,
 where the tree has one).  ``--bits`` with the megakernels saves each
-tree's forward radiance on the 512x512 frame and on chip_smoke.py phase
-3's four 64x64 cases (frame 3 PCG states) as ``.npy`` files under
+tree's forward radiance on the 512x512 frame, the mesh frame and on
+chip_smoke.py phase 3's four 64x64 cases (frame 3 PCG states) as ``.npy``
+files under
 ``--out`` and counts, for every tree, the pixels that differ in any bit
 from the first tree's; it also reports how far each backward's table
 gradients lie from the first tree's, and whether two launches of each
@@ -83,7 +87,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {"fwd": "megakernel_fwd_kernel", "bwd": "megakernel_bwd_kernel"}
+KERNELS = {"fwd": "megakernel_fwd_kernel",
+           "fwd_bvh": "megakernel_fwd_bvh_kernel",
+           "bwd": "megakernel_bwd_kernel"}
 FOLD_KERNEL = "megakernel_bwd_fold_kernel"
 # The traversal kernel's name in each tree: the stack walk, or the
 # skip-link walk of the trees before it.
@@ -109,7 +115,8 @@ def build_all(trees, build_root):
     libs = {}
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text()
-        report = {k: _build.ptxas_report(log, v) for k, v in KERNELS.items()}
+        report = {k: _build.ptxas_report(log, v) for k, v in KERNELS.items()
+                  if v in log}
         if FOLD_KERNEL in log:
             report["fold"] = _build.ptxas_report(log, FOLD_KERNEL)
         report["traversal"] = next(
@@ -141,11 +148,17 @@ def reference_64_tris(device):
 
 
 def inputs(torch, pt, device):
-    """The packed arguments of both kernels at the main path's shapes."""
+    """The packed arguments of both kernels at the main path's shapes: the
+    flat tables with the view matrix last, the counts, state and pixels,
+    the scalars, the configuration, and the BVH's node and triangle rows
+    where the forward walks it (else None)."""
     import numpy as np
+
+    import chip_smoke as cs
     from tpu_path_tracer_torch.core import rng
     from tpu_path_tracer_torch.integrator.render import pixel_grid
     from tpu_path_tracer_torch.kernels import megakernel as mk
+    from tpu_path_tracer_torch.kernels import traversal
 
     def args(scene_fn, eye, cfg, frame):
         scene, meta, _ = scene_fn(device=device)
@@ -153,14 +166,20 @@ def inputs(torch, pt, device):
                                .view_matrix, device=device)
         pix, px, py = pixel_grid(cfg.width, cfg.height, device)
         tables = mk.pack_tables(scene) + (view.to(torch.float32),)
-        flat, counts, st, px32, py32 = mk._prepare(rng.seed(pix, frame), px,
-                                                   py, tables, scene)
-        return (flat, counts, st, px32, py32,
-                mk._scalar_args(scene, meta, cfg, px.shape[0]), cfg)
+        flat = torch.cat([t.reshape(-1) for t in tables]).contiguous()
+        st, px32, py32 = mk._pixels(rng.seed(pix, frame), px, py)
+        bvh = (traversal.pack_bvh(scene.bvh, scene.triangles)
+               if mk.route(scene, meta, cfg.replace(use_megakernel=True),
+                           view, device).tracer == mk.BVH else None)
+        return (flat, mk._counts(scene), st, px32, py32,
+                mk._scalar_args(scene, meta, cfg, px.shape[0]), cfg, bvh)
 
     B = pt.builtin
     fwd = args(B.reference_scene, [0.5, 0.0, 2.5],
                pt.RenderConfig(width=512, height=512, max_bounces=4), 1)
+    mesh = args(lambda device: (*cs.mesh_scene(cs.MESH_SUBDIVISIONS[0],
+                                               device), None),
+                cs.MESH_EYE, pt.RenderConfig(**cs.MESH_KW), 3)
     bwd = args(B.cornell_box, [0, 0, 3.2],
                pt.RenderConfig(width=512, height=512, max_bounces=4,
                                importance_sampling=True), 1)
@@ -188,39 +207,63 @@ def inputs(torch, pt, device):
     small["reference_full_512_frame3"] = args(
         B.reference_scene, [0.5, 0.0, 2.5],
         pt.RenderConfig(width=512, height=512, max_bounces=4), 3)
-    return fwd, {"cornell": bwd, "reference": bwd_reference,
-                 "reference_64_tris": bwd_64_tris}, gout, small
+    return fwd, mesh, {"cornell": bwd, "reference": bwd_reference,
+                       "reference_64_tris": bwd_64_tris}, gout, small
 
 
 def bind(lib):
-    """A tree's megakernel entry points: forward, backward and the fold of
-    the backward's block rows (None in the trees before it).  Every tree's
-    backward takes the same arguments; the later ones take the block rows
-    where the earlier ones took the zeroed gradient buffer."""
+    """A tree's megakernel entry points: forward, whether the forward is the
+    one entry point that takes the view matrix and the BVH's rows after
+    the scalars (such a tree carries its host twin,
+    ``tpt_megakernel_fwd_host``; earlier trees take the view inside the
+    tables), the forward's BVH variant of the earlier trees (None where
+    there is none), backward and the fold of the backward's block rows
+    (None in the trees before it).  Every tree's backward takes the same
+    arguments; the later ones take the block rows where the earlier ones
+    took the zeroed gradient buffer."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scalars = [i] * 7 + [f] * 13
     fwd, bwd = lib.tpt_megakernel_fwd, lib.tpt_megakernel_bwd
+    single = hasattr(lib, "tpt_megakernel_fwd_host")
+    fwd_bvh = None if single else getattr(lib, "tpt_megakernel_fwd_bvh",
+                                          None)
     fold = getattr(lib, "tpt_megakernel_bwd_fold", None)
-    fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p]
+    fwd.argtypes = ([p, i, i, i, p, p, p, p] + scalars
+                    + [p] * (4 if single else 1))
     bwd.argtypes = [p, i, i, i, p, p, p, p, p, p] + scalars + [p]
     fwd.restype = bwd.restype = ctypes.c_int
+    if fwd_bvh is not None:
+        fwd_bvh.argtypes = [p] * 4 + [i] * 3 + [p] * 4 + scalars + [p]
+        fwd_bvh.restype = ctypes.c_int
     if fold is not None:
         fold.argtypes = [p, i, i, p, p]
         fold.restype = ctypes.c_int
-    return fwd, bwd, fold
+    return fwd, single, fwd_bvh, bwd, fold
 
 
 def launch(torch, lib, kind, a, gout=None):
     """One launch of ``kind`` from library ``lib`` on packed arguments
     ``a``; returns the radiance or the table gradients."""
-    flat, counts, st, px32, py32, scalars, cfg = a
+    flat, counts, st, px32, py32, scalars, cfg, bvh = a
     n = px32.shape[0]
     stream = torch.cuda.current_stream().cuda_stream
-    fwd, bwd, fold = bind(lib)
+    fwd, single, fwd_bvh, bwd, fold = bind(lib)
     if kind == "fwd":
         out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
-        err = fwd(flat.data_ptr(), *counts, st.data_ptr(), px32.data_ptr(),
-                  py32.data_ptr(), out.data_ptr(), *scalars, stream)
+        pixels = (st.data_ptr(), px32.data_ptr(), py32.data_ptr(),
+                  out.data_ptr())
+        view = flat[-16:].data_ptr()
+        rows = [t.data_ptr() for t in bvh] if bvh else [None, None]
+        if single:
+            err = fwd(flat.data_ptr(), *counts, *pixels, *scalars, view,
+                      *rows, stream)
+        elif bvh:
+            if fwd_bvh is None:
+                raise SystemExit("this tree's forward has no BVH variant")
+            err = fwd_bvh(flat.data_ptr(), view, *rows, *counts, *pixels,
+                          *scalars, stream)
+        else:
+            err = fwd(flat.data_ptr(), *counts, *pixels, *scalars, stream)
     else:
         # The largest record scratch any tree has used (14 words a bounce).
         rec = torch.empty((cfg.max_bounces * 14 * n,), dtype=torch.float32,
@@ -507,15 +550,14 @@ def pairs_ab(torch, pt, device, trees, libs, args, smi):
         else:
             meta, cfg, view = frame
             for v in names + names[::-1]:
-                before = traversal._PAIR_ROUTES[route]
-                traversal._PAIR_ROUTES[route] = entry[v]
+                before = traversal.closest_hit
+                traversal.closest_hit = entry[v]
                 try:
-                    with cs.pair_dispatch(route):
-                        timed[v].append(call_ms(torch, lambda: cs.time_frames(
-                            torch, pt, device, scene, meta, cfg, view, 1),
-                            max(2, args.reps // 3)))
+                    timed[v].append(call_ms(torch, lambda: cs.time_frames(
+                        torch, pt, device, scene, meta, cfg, view, 1),
+                        max(2, args.reps // 3)))
                 finally:
-                    traversal._PAIR_ROUTES[route] = before
+                    traversal.closest_hit = before
             what = "frame"
         for v in names:
             row = {"tree": v, "case": case, "what": what,
@@ -577,12 +619,13 @@ def main():
                                      smi)
         print(json.dumps({"card": smi, "kernels": results, "bits": bits}))
         return
-    fwd_args, bwd_args, gout, small = inputs(torch, pt, device)
-    cases = [("fwd", "reference", fwd_args)] + [
+    fwd_args, mesh_args, bwd_args, gout, small = inputs(torch, pt, device)
+    cases = [("fwd", "reference", fwd_args), ("fwd", "mesh", mesh_args)] + [
         ("bwd", scene, a) for scene, a in bwd_args.items()]
     results = {}
     for kind, scene, a in cases:
         g = gout if kind == "bwd" else None
+        kernel = "fwd_bvh" if a[-1] else kind
         samples = {v: [] for v in names}
         fold = {v: [] for v in names if "fold" in libs[v][1]}
         how = set()
@@ -590,7 +633,7 @@ def main():
             def call():
                 return launch(torch, libs[v][0], kind, a, g)
 
-            t, method = device_ms(torch, call, KERNELS[kind], args.reps)
+            t, method = device_ms(torch, call, KERNELS[kernel], args.reps)
             samples[v] += t
             how.add(method)
             if kind == "bwd" and v in fold:
@@ -599,10 +642,10 @@ def main():
                 how.add(method)
         for v in names:
             t = samples[v]
-            row = {"tree": v, "kernel": KERNELS[kind], "scene": scene,
+            row = {"tree": v, "kernel": KERNELS[kernel], "scene": scene,
                    "median_ms": statistics.median(t), "min_ms": min(t),
                    "max_ms": max(t), "launches": len(t),
-                   "timed_by": sorted(how), **libs[v][1][kind],
+                   "timed_by": sorted(how), **libs[v][1][kernel],
                    "card": smi}
             if kind == "bwd" and v in fold:
                 f = fold[v]
@@ -616,7 +659,8 @@ def main():
     bits = {}
     if args.bits:
         os.makedirs(args.out, exist_ok=True)
-        cases = {"reference_full_512": fwd_args, **small}
+        cases = {"reference_full_512": fwd_args, "mesh_512": mesh_args,
+                 **small}
         for case, a in cases.items():
             outs = {}
             for v in names:

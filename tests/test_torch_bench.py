@@ -381,9 +381,10 @@ def test_megakernel_bound_counts_the_bvh_walks():
     from tpu_path_tracer_torch.kernels import traversal
 
     scene, meta = bench.mesh_scene(2, "cpu")
-    assert mk.walks_bvh(scene, meta)
     cfg = pt.RenderConfig(width=8, height=8, max_bounces=2,
                           importance_sampling=True)
+    assert mk.route(scene, meta, cfg.replace(use_megakernel=True),
+                    torch.eye(4), torch.device("cpu")).tracer == mk.BVH
     calls = []
     closest_hit = traversal.closest_hit
 

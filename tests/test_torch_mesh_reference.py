@@ -15,7 +15,6 @@ same bits.
 
 import ctypes
 import shutil
-import subprocess
 import types
 
 import numpy as np
@@ -31,13 +30,14 @@ from benchmark.scenes import icosphere81k
 
 import tpu_path_tracer_torch as pt
 from tpu_path_tracer_torch.core import rng
-from tpu_path_tracer_torch.integrator.render import pixel_grid, render_frame
+from tpu_path_tracer_torch.integrator.render import (path_trace_pixels as
+                                                     tptp, pixel_grid,
+                                                     render_frame)
 from tpu_path_tracer_torch.kernels import _build, megakernel, traversal
 from tpu_path_tracer_torch.scene import procedural
 from tpu_path_tracer_torch.scene.builder import BRUTE_FORCE_MAX_TRIS
 from tpu_path_tracer_torch.utils import profiling
 
-from test_torch_render import HOST_FORWARD
 from test_torch_traversal import _left_chain
 from torch_kernel_route import kernel_route  # noqa: F401
 
@@ -59,6 +59,14 @@ def _view():
     return torch.as_tensor(rs.target_to(EYE, [0, 0, 0], [0, 1, 0]))
 
 
+def _tracer(scene, meta, cfg, grad=False, required=False, device="cpu"):
+    """The tracer ``megakernel.route`` picks for a render whose view
+    matrix requires grad where ``grad`` is set."""
+    view = _view().float().requires_grad_(grad)
+    return megakernel.route(scene, meta, cfg, view, torch.device(device),
+                            required).tracer
+
+
 @pytest.mark.parametrize("nee", [True, False])
 def test_mesh_route_equals_the_blocked_reference(nee):
     """The recipe's room with a 320-triangle icosphere: the port's LBVH
@@ -70,9 +78,8 @@ def test_mesh_route_equals_the_blocked_reference(nee):
     cfg = system.render_config(job)
     assert scene.triangles.count == 320 > BRUTE_FORCE_MAX_TRIS
     assert meta.traversal == "bvh" and scene.bvh is not None
-    assert megakernel.supported(scene, meta, cfg)
-    assert megakernel.walks_bvh(scene, meta)
-    assert not megakernel.vjp_supported(scene, meta, cfg)
+    assert _tracer(scene, meta, cfg) == megakernel.BVH
+    assert _tracer(scene, meta, cfg, grad=True) == megakernel.WAVEFRONT
     ref = rs.build(desc, "cpu")
     pix = torch.arange(job["width"] * job["height"])
     for frame_num in (1, 9):
@@ -228,29 +235,20 @@ def _bvh_scene(name):
 
 
 @pytest.fixture(scope="module")
-def host_tracers(tmp_path_factory):
-    """``traversal.cu`` built for the CPU (its host entry point
-    ``tpt_megakernel_fwd_bvh_host``: the BVH variant) and
-    ``test_torch_render``'s harness of the shared-memory variant."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+def host_tracer(tmp_path_factory):
+    """``traversal.cu`` built for the CPU: its host entry point
+    ``tpt_megakernel_fwd_host``, the forward kernel's entry point on the
+    CPU (the BVH variant where it is given the BVH's rows, the
+    shared-memory variant where they are null)."""
+    if shutil.which("g++") is None:
         pytest.skip("needs a C++ compiler (g++)")
-    out = tmp_path_factory.mktemp("host_bvh")
-    walk = _build.load_host_walk(build_dir=out)
-    (out / "host.cpp").write_text(HOST_FORWARD)
-    subprocess.run([cxx, *_build.HOST_FLAGS[:-2], "-I",
-                    str(_build.CSRC_DIR), "-o", str(out / "host.so"),
-                    str(out / "host.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    shared = ctypes.CDLL(str(out / "host.so"))
+    walk = _build.load_host_walk(
+        build_dir=tmp_path_factory.mktemp("host_bvh"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    scalars = [i] * 7 + [f] * 13
-    walk.tpt_megakernel_fwd_bvh_host.argtypes = (
-        [p] * 4 + [i] * 3 + [p] * 4 + scalars)
-    walk.tpt_megakernel_fwd_bvh_host.restype = None
-    shared.host_fwd.argtypes = [p, i, i, i] + [p] * 4 + scalars
-    shared.host_fwd.restype = None
-    return walk.tpt_megakernel_fwd_bvh_host, shared.host_fwd
+    walk.tpt_megakernel_fwd_host.argtypes = (
+        [p, i, i, i] + [p] * 4 + [i] * 7 + [f] * 13 + [p] * 3)
+    walk.tpt_megakernel_fwd_host.restype = None
+    return walk.tpt_megakernel_fwd_host
 
 
 # With NEE the tracer's light-plane and pdf arithmetic rounds a few lanes
@@ -262,7 +260,7 @@ NEE_TOL = 2e-6
 
 @pytest.mark.parametrize("nee", [True, False])
 @pytest.mark.parametrize("name", ["room", "twice", "chain"])
-def test_bvh_megakernel_source_on_cpu(host_tracers, name, nee):
+def test_bvh_megakernel_source_on_cpu(host_tracer, name, nee):
     """The forward kernel's BVH variant (``csrc/megakernel_fwd.cu``'s
     tracer with ``bvh_walk.cuh``'s hit search, built for the CPU) over the
     recipe's room at 320 triangles, the same with the icosphere added
@@ -270,11 +268,10 @@ def test_bvh_megakernel_source_on_cpu(host_tracers, name, nee):
     walk's stack: on frames 1 and 9 at 16x16, the same bits as the
     shared-memory variant's triangle loop, and the wavefront's radiance,
     bit for bit without NEE and within ``NEE_TOL`` with it."""
-    bvh_trace, shared_trace = host_tracers
     scene, meta = _bvh_scene(name)
-    assert megakernel.walks_bvh(scene, meta)
     cfg = system.render_config(_job(nee=nee))
-    view = _view().to(torch.float32)
+    assert _tracer(scene, meta, cfg) == megakernel.BVH
+    view = _view().to(torch.float32).contiguous()
     pix, px, py = pixel_grid(16, 16, "cpu")
     n = pix.shape[0]
     flat = torch.cat([t.reshape(-1) for t in megakernel.pack_tables(scene)])
@@ -286,14 +283,12 @@ def test_bvh_megakernel_source_on_cpu(host_tracers, name, nee):
             state, view, px, py, scene, meta, cfg)
         st, x, y = megakernel._pixels(state, px, py)
         got, loop = torch.empty((n, 3)), torch.empty((n, 3))
-        bvh_trace(flat.data_ptr(), view.contiguous().data_ptr(),
-                  rows.data_ptr(), tri_rows.data_ptr(),
-                  *megakernel._counts(scene), st.data_ptr(), x.data_ptr(),
-                  y.data_ptr(), got.data_ptr(), *args)
-        whole = torch.cat([flat, view.reshape(-1)])
-        shared_trace(whole.data_ptr(), *megakernel._counts(scene),
-                     st.data_ptr(), x.data_ptr(), y.data_ptr(),
-                     loop.data_ptr(), *args)
+        for out, bvh_rows in ((got, (rows, tri_rows)), (loop, None)):
+            host_tracer(flat.data_ptr(), *megakernel._counts(scene),
+                        st.data_ptr(), x.data_ptr(), y.data_ptr(),
+                        out.data_ptr(), *args, view.data_ptr(),
+                        *([t.data_ptr() for t in bvh_rows] if bvh_rows
+                          else [None, None]))
         assert float(ref.abs().sum()) > 0
         assert torch.equal(got.view(torch.int32), loop.view(torch.int32))
         if nee:
@@ -346,8 +341,7 @@ def test_bvh_scene_with_gradients_takes_the_wavefront(kernel_route):
     scene = scene._replace(
         materials=scene.materials._replace(emission=emission))
     cfg = system.render_config(_job(width=8, height=4))
-    assert megakernel.supported(scene, meta, cfg)
-    assert not megakernel.routes(scene, meta, cfg, _view())
+    assert _tracer(scene, meta, cfg) == megakernel.WAVEFRONT
     profiling.reset()
     fb = render_frame(torch.zeros((32, 3)), 1, True, _view(), scene, meta,
                       cfg)
@@ -370,9 +364,70 @@ def test_brute_force_scene_takes_the_wavefront(kernel_route):
     assert MAX_TRIS < scene.triangles.count <= BRUTE_FORCE_MAX_TRIS
     assert meta.traversal == "brute" and scene.bvh is None
     cfg = system.render_config(_job(width=8, height=4))
-    assert not megakernel.supported(scene, meta, cfg)
+    assert _tracer(scene, meta, cfg) == megakernel.WAVEFRONT
     profiling.reset()
     _route_frames(scene, meta, cfg, frames=2)
     assert len(kernel_route) == 0
     assert profiling.counts()["wavefront_bounces"] == 2 * cfg.max_bounces
     profiling.reset()
+
+
+def _route_scene(name):
+    if name == "cornell":
+        return pt.builtin.cornell_box(device="cpu")[:2]
+    if name == "brute":
+        return system.build_scene(
+            icosphere81k.describe({"subdivisions": 1}), "cpu")
+    return _bvh_scene(name)
+
+
+DEEP = {"max_bounces": megakernel.MAX_UNROLL_BOUNCES + 1}
+# name: (scene, config changes, gradients, required, device, the tracer or
+# the error raised).
+ROUTE_CASES = {
+    "tables": ("cornell", {}, False, False, "cpu", megakernel.TABLES),
+    "tables_grad": ("cornell", {}, True, False, "cpu", megakernel.TABLES),
+    "off": ("cornell", {"use_megakernel": False}, True, False, "cpu",
+            megakernel.WAVEFRONT),
+    "deep": ("cornell", DEEP, False, False, "cpu", megakernel.TABLES),
+    "deep_grad": ("cornell", DEEP, True, False, "cpu",
+                  (NotImplementedError, "65 bounce bodies")),
+    "no_device": ("cornell", {}, False, False, "meta",
+                  (ValueError, "no route for device meta")),
+    "bvh": ("room", {}, False, False, "cpu", megakernel.BVH),
+    "bvh_grad": ("room", {}, True, False, "cpu", megakernel.WAVEFRONT),
+    "bvh_grad_required": ("room", {}, True, True, "cpu",
+                          (NotImplementedError, "BVH scene of 320")),
+    "brute": ("brute", {}, False, False, "cpu", megakernel.WAVEFRONT),
+    "brute_grad": ("brute", {}, True, False, "cpu", megakernel.WAVEFRONT),
+    "brute_required": ("brute", {}, False, True, "cpu", megakernel.TABLES),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_route_decides_the_tracer_once(case, monkeypatch):
+    """``megakernel.route`` picks the tracer of each kind of render, or
+    raises what the route raises; ``path_trace_pixels`` on CPU tensors
+    (``path_trace_pixels_megakernel`` where the megakernel is required)
+    asks it once and finds out at most once whether gradients are
+    wanted."""
+    name, changes, grad, required, device, want = ROUTE_CASES[case]
+    scene, meta = _route_scene(name)
+    cfg = system.render_config(_job(width=2, height=2)).replace(**changes)
+    if isinstance(want, tuple):
+        with pytest.raises(want[0], match=want[1]):
+            _tracer(scene, meta, cfg, grad, required, device)
+        return
+    assert _tracer(scene, meta, cfg, grad, required, device) == want
+    asked = []
+    wants_grad = megakernel._wants_grad
+    monkeypatch.setattr(megakernel, "_wants_grad",
+                        lambda *a: asked.append(a) or wants_grad(*a))
+    pix, px, py = pixel_grid(2, 2, "cpu")
+    args = (rng.seed(pix, 1), _view().float().requires_grad_(grad), px, py,
+            scene, meta, cfg)
+    rad = (megakernel.path_trace_pixels_megakernel(*args) if required
+           else tptp(*args)[1])
+    assert rad.shape == (4, 3) and rad.requires_grad == grad
+    assert len(asked) == (0 if case in ("off", "brute", "brute_grad")
+                          else 1)

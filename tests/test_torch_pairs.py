@@ -426,11 +426,12 @@ def _mirror_sphere_scene():
 
 @pytest.mark.parametrize("route", ["pairbin", "pair"])
 def test_pair_dispatch_routes_find_hit(route, monkeypatch):
-    """``traversal.PAIR_DISPATCH`` sends ``find_hit``'s BVH search through
-    the named pair sweep: the sweep's wrapper is called, the winners'
-    primitive types equal the walk route's on every lane, and a 16x16 frame
-    (3 bounces, NEE) keeps its mean within 1%."""
-    assert traversal.PAIR_DISPATCH is None
+    """The named pair sweep's entry point in place of
+    ``traversal.closest_hit`` (the BVH walk) answers ``find_hit``'s BVH
+    search on the same rays: the sweep's wrapper is called, the winners'
+    primitive types equal the walk's on every lane and their triangle
+    indices on more than 98% of them, and a 16x16 frame (3 bounces, NEE)
+    keeps its mean within 1%."""
     scene, meta = _mirror_sphere_scene()
     cfg = pt.RenderConfig(width=16, height=16, max_bounces=3,
                           importance_sampling=True)
@@ -452,7 +453,8 @@ def test_pair_dispatch_routes_find_hit(route, monkeypatch):
     ptype_w, pidx_w, rad_w = run()
     rec = _Recorder(getattr(ps, f"{route}_sweep"))
     monkeypatch.setattr(ps, f"{route}_sweep", rec)
-    monkeypatch.setattr(traversal, "PAIR_DISPATCH", route)
+    monkeypatch.setattr(traversal, "closest_hit",
+                        getattr(ps, f"{route}_closest_hit"))
     ptype, pidx, rad = run()
     assert rec.calls
     np.testing.assert_array_equal(ptype, ptype_w)
@@ -460,9 +462,6 @@ def test_pair_dispatch_routes_find_hit(route, monkeypatch):
     assert (pidx == pidx_w).mean() > 0.98
     assert np.all(ptype[~alive.numpy()] == hit.MISS)
     np.testing.assert_allclose(rad.mean(0), rad_w.mean(0), rtol=1e-2)
-    monkeypatch.setattr(traversal, "PAIR_DISPATCH", "tile")
-    with pytest.raises(KeyError):
-        hit.find_hit(state, ray, scene, meta, cfg, alive=alive)
 
 
 def test_sweeps_refuse_other_devices():

@@ -192,7 +192,9 @@ def test_megakernel_wrapper_has_no_fallback(monkeypatch):
 
 def test_supported_routing():
     scene, meta, _ = pt.builtin.reference_scene(device="cpu")
-    assert mk.supported(scene, meta, pt.RenderConfig())
+    cfg = pt.RenderConfig(use_megakernel=True)
+    assert mk.route(scene, meta, cfg, torch.eye(4),
+                    torch.device("cpu")).tracer == mk.TABLES
     assert scene.triangles.count == 12
     assert mk.resolved_spp(pt.RenderConfig(samples_per_pixel=5,
                                            stratify=True)) == 4

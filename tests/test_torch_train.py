@@ -222,17 +222,25 @@ def test_megakernel_route_on_cpu_gives_the_wavefront_gradients():
 
 def test_unroll_budget_error_and_vjp_supported():
     """Gradients of the megakernel route over MAX_UNROLL_BOUNCES bounce
-    bodies raise with the JAX package's message, naming the wavefront;
-    the forward alone still runs (megakernel.py:812-817)."""
+    bodies raise with the JAX package's message, naming the wavefront,
+    from ``megakernel.route`` and from a render; at the budget the
+    differentiable route holds, and the forward alone still runs
+    (megakernel.py:812-817)."""
     scene, meta, _ = pt.builtin.cornell_box(device="cpu")
     cfg = pt.RenderConfig(width=4, height=2, use_megakernel=True,
                           max_bounces=mk.MAX_UNROLL_BOUNCES + 1)
-    assert not mk.vjp_supported(scene, meta, cfg)
-    assert mk.vjp_supported(scene, meta, cfg.replace(max_bounces=64))
     strat = cfg.replace(max_bounces=17, samples_per_pixel=4, stratify=True)
-    assert not mk.vjp_supported(scene, meta, strat)
     pix, px, py = pixel_grid(4, 2, "cpu")
     view = torch.as_tensor(pt.Camera(eye=[0, 0, 3.2]).view_matrix)
+    grad_view = view.clone().requires_grad_()
+    cpu = torch.device("cpu")
+    for c in (cfg, strat):
+        with pytest.raises(NotImplementedError, match="bounce bodies"):
+            mk.route(scene, meta, c, grad_view, cpu)
+    assert mk.route(scene, meta, cfg.replace(max_bounces=64), grad_view,
+                    cpu) == mk.Route(mk.TABLES, True)
+    assert mk.route(scene, meta, cfg, view, cpu) == mk.Route(mk.TABLES,
+                                                             False)
     params = {k: v.clone().requires_grad_(True) for k, v in
               tparams.extract_params(scene, ("emission",)).items()}
     for c in (cfg, strat):

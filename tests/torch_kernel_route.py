@@ -15,8 +15,9 @@ from tpu_path_tracer_torch.kernels import megakernel as mk
 
 
 class Launches(list):
-    """The flat tables each launch was handed, in the forward kernel's
-    layout sph | quad | tri | light | cam; ``bvh`` holds, for each launch of
+    """The tables each launch was handed, in the forward kernel's shared
+    layout sph | quad | tri | light | cam (the flat tables, then the view
+    matrix the entry point takes apart); ``bvh`` holds, for each launch of
     the BVH variant, the pointers of its node and triangle rows."""
 
     def __init__(self):
@@ -31,35 +32,27 @@ def _floats(ptr, n):
 
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """The route with its kernels stand-ins that write zero radiance.
-    Returns the :class:`Launches`: the flat tables each launch was handed,
-    copied out of the launch's pointers (for the BVH variant, its tables
-    and the view matrix it takes apart).  The wrapper's cache of packed
-    tables starts and ends empty."""
+    """The route with its kernel a stand-in that writes zero radiance.
+    Returns the :class:`Launches`: the tables and view matrix each launch
+    was handed, copied out of the launch's pointers.  The wrapper's cache
+    of packed tables starts and ends empty."""
     flats = Launches()
 
     def launch(flat, n_sph, n_quad, n_tri, *args):
         out, n = args[3], args[4]
-        floats = (n_sph * mk.SPH_COLS + n_quad * mk.QUAD_COLS
-                  + n_tri * mk.TRI_COLS + mk.LIGHT_COLS + mk.CAM_COLS)
-        flats.append(_floats(flat, floats))
-        ctypes.memset(out, 0, 12 * n)
-        return 0
-
-    def launch_bvh(flat, view, rows, tris, n_sph, n_quad, n_tri, *args):
-        out, n = args[3], args[4]
+        view, rows, tris = args[-4:-1]
         floats = (n_sph * mk.SPH_COLS + n_quad * mk.QUAD_COLS
                   + n_tri * mk.TRI_COLS + mk.LIGHT_COLS)
         flats.append(torch.cat([_floats(flat, floats),
                                 _floats(view, mk.CAM_COLS)]))
-        flats.bvh.append((rows, tris))
+        if rows is not None:
+            flats.bvh.append((rows, tris))
         ctypes.memset(out, 0, 12 * n)
         return 0
 
     monkeypatch.setattr(mk, "path_trace_pixels_reference", mk._kernel_route)
     monkeypatch.setattr(_build, "load", lambda: None)
     monkeypatch.setattr(mk, "_bind", lambda lib: (launch, None, None))
-    monkeypatch.setattr(mk, "_bind_bvh", lambda lib: launch_bvh)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     mk.clear_table_cache()

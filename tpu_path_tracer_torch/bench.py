@@ -285,10 +285,10 @@ def check_forward(scene, meta, cfg, eye, device):
     from .kernels import megakernel as mk
 
     small = cfg.replace(width=16, height=8, use_megakernel=True)
-    if not mk.supported(scene, meta, small):
-        raise RuntimeError("the forward megakernel does not cover the scene")
     pix, px, py = pixel_grid(small.width, small.height, device)
     state, view = rng.seed(pix, 3), _view(eye, device)
+    if mk.route(scene, meta, small, view, px.device).tracer == mk.WAVEFRONT:
+        raise RuntimeError("the forward megakernel does not cover the scene")
     with torch.no_grad():
         got, _ = _launches(lambda: mk.path_trace_pixels_megakernel(
             state, view, px, py, scene, meta, small), device,
@@ -407,7 +407,8 @@ def bench_fwd_bwd(width=512, height=512, bounces=4, use_megakernel=False,
                        use_megakernel=use_megakernel)
     out = {}
     if use_megakernel:
-        if not mk.vjp_supported(scene, meta, cfg):
+        view = _view(eye, dev).requires_grad_()
+        if mk.route(scene, meta, cfg, view, dev).tracer != mk.TABLES:
             raise RuntimeError("no differentiable megakernel route")
         out["parity"] = check_forward(scene, meta, cfg, eye, dev)
         kernels = MEGAKERNELS

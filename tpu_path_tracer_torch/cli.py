@@ -248,29 +248,20 @@ def cmd_bench(args):
     sys.exit(bench_main(["--device", args.device]))
 
 
-def _pixels(cfg, device):
-    from .integrator.render import pixel_grid
-
-    return pixel_grid(cfg.width, cfg.height, device)
-
-
 def cmd_grad_check(args):
     """Finite differences against reverse mode on emitter radiance and BSDF
     albedo (BASELINE.json configs[3])."""
     import torch
-    from .core import rng
     from .core.camera import Camera
     from .diff.params import apply_params, extract_params
-    from .integrator.render import path_trace_pixels
+    from .dist.render_dist import pixel_radiance
 
     device = _device(args)
     scene, meta, eye = _build_scene(args, device)
     cfg = _make_cfg(args).replace(width=64, height=64,
                                   max_bounces=min(args.bounces, 4))
-    view = torch.as_tensor(Camera(eye=args.eye or eye,
-                                  center=[0, 0, 0]).view_matrix,
-                           device=device)
-    pix, px, py = _pixels(cfg, device)
+    view = Camera(eye=args.eye or eye, center=[0, 0, 0]).view_matrix
+    pix = torch.arange(cfg.width * cfg.height, device=device)
     base = extract_params(scene, groups=("emission", "bsdf"))
 
     def loss(scale_e, scale_c):
@@ -278,9 +269,7 @@ def cmd_grad_check(args):
         p["emission"] = base["emission"] * scale_e
         p["color"] = base["color"] * scale_c
         s = apply_params(scene, p)
-        _, radiance = path_trace_pixels(rng.seed(pix, 7), view, px, py, s,
-                                        meta, cfg)
-        return torch.mean(radiance)
+        return torch.mean(pixel_radiance(pix, 7, view, s, meta, cfg))
 
     scales = [torch.tensor(1.0, device=device, requires_grad=True)
               for _ in range(2)]

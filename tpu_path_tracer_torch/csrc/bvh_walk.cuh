@@ -251,16 +251,19 @@ TPT_HD Params bvh_shared_params(const Params& p) {
   return s;
 }
 
-// Float k (k < table_floats(bvh_shared_params(p))) of the shared tables,
-// from the flat tables sph | quad | tri | light in global memory and the
-// view matrix (16 floats), which the caller passes apart so that the
-// triangle table is not copied every frame.
-TPT_HD float bvh_shared_float(const Params& p, const float* tables,
+// Float k of a forward block's shared tables (k < table_floats(p), or of
+// bvh_shared_params(p) where the block walks the BVH): from the flat tables
+// sph | quad | tri | light in global memory, the triangles left out when
+// walk is set, and the view matrix (16 floats), which the caller passes
+// apart so that no frame copies the cached tables.
+TPT_HD float fwd_shared_float(const Params& p, bool walk, const float* tables,
                               const float* view, int k) {
   const int sq = p.n_sph * SPH_COLS + p.n_quad * QUAD_COLS;
-  if (k < sq) return tables[k];
-  k -= sq;
-  if (k < LIGHT_COLS) return tables[sq + p.n_tri * TRI_COLS + k];
+  const int tri = p.n_tri * TRI_COLS;
+  const int head = walk ? sq : sq + tri;
+  if (k < head) return tables[k];
+  k -= head;
+  if (k < LIGHT_COLS) return tables[sq + tri + k];
   return view[k - LIGHT_COLS];
 }
 

@@ -27,8 +27,9 @@
 // kernel of commit ae782d5 did, so the radiance is equal to its bit for
 // bit (PERF.md).
 //
-// Two instantiations of the tracer, picked by the scene (the wrapper,
-// kernels/megakernel.py, routes):
+// Two instantiations of the tracer behind one entry point, which launches
+// the second when it is given the BVH's rows (the wrapper,
+// kernels/megakernel.py route, decides):
 //   * megakernel_fwd_kernel: at most MAX_MEGAKERNEL_TRIS (64) triangles,
 //     tested one by one from shared memory (tracer.cuh SharedTris);
 //   * megakernel_fwd_bvh_kernel: a scene with a BVH above that, for frames
@@ -39,10 +40,11 @@
 //     eager wavefront's thousands.  The node and triangle rows (9.1 MB at
 //     81,920 triangles) and the triangles' 31-float rows (10.2 MB) stay in
 //     global memory, L2-resident; shading reads the winner's row there.
-//     Shared memory holds the spheres, quads, light and camera.  The view
-//     matrix comes apart from the cached tables, so no frame copies the
-//     triangle table.  What bounds it: the walk's dependent loads, as in
-//     traversal.cu, now with the shading's registers live around them.
+//     Shared memory holds the spheres, quads, light and camera.  What
+//     bounds it: the walk's dependent loads, as in traversal.cu, now with
+//     the shading's registers live around them.
+// Both take the view matrix apart from the flat tables, which the wrapper
+// packs once per scene, so no frame copies them (fwd_shared_float).
 
 #include "bvh_walk.cuh"
 
@@ -54,6 +56,7 @@ using namespace tpt;
 // budgets for 6 blocks (80 registers) or 4 (89) measured slower (PERF.md).
 __global__ void __launch_bounds__(128)
 megakernel_fwd_kernel(const float* __restrict__ tables,
+                      const float* __restrict__ view,
                       const int* __restrict__ state_in,
                       const int* __restrict__ px_in,
                       const int* __restrict__ py_in,
@@ -61,7 +64,7 @@ megakernel_fwd_kernel(const float* __restrict__ tables,
   extern __shared__ float smem[];
   const int n_floats = table_floats(p);
   for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
-    smem[k] = tables[k];
+    smem[k] = fwd_shared_float(p, false, tables, view, k);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < scene_invariants(p); k += blockDim.x) {
@@ -80,9 +83,8 @@ megakernel_fwd_kernel(const float* __restrict__ tables,
   out[3 * i + 2] = rgb[2];
 }
 
-// The BVH variant: shared memory takes the tables without their triangles
-// (bvh_shared_float), tables points at the flat tables sph | quad | tri |
-// light in global memory and view at the 16 floats of the camera.  Left
+// The BVH variant: shared memory takes the tables without their triangles,
+// which it reads from the flat tables in global memory.  Left
 // to its own budget ptxas fits it in 72 registers with 8 bytes of spills
 // (7 blocks of 128 threads an SM); on the 81,920-triangle icosphere at
 // 512x512 that measured 0.644 ms a frame, a budget of 8 blocks (64
@@ -102,7 +104,7 @@ megakernel_fwd_bvh_kernel(const float* __restrict__ tables,
   const Params ps = bvh_shared_params(p);
   const int n_floats = table_floats(ps);
   for (int k = threadIdx.x; k < n_floats; k += blockDim.x) {
-    smem[k] = bvh_shared_float(p, tables, view, k);
+    smem[k] = fwd_shared_float(p, true, tables, view, k);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < scene_invariants(ps); k += blockDim.x) {
@@ -126,15 +128,19 @@ megakernel_fwd_bvh_kernel(const float* __restrict__ tables,
 
 // C entry point, bound with ctypes (kernels/megakernel.py).  ``tables`` is
 // the concatenation sph [n_sph, 17] | quad [n_quad, 29] | tri [n_tri, 31] |
-// light [9] | cam [16], all float32.  ``grid_n`` is the stratified grid
-// side, or 0 for plain jitter.  Returns cudaGetLastError() of the launch.
+// light [9], all float32, and ``view`` the row-major 4x4 view matrix.
+// ``grid_n`` is the stratified grid side, or 0 for plain jitter.  With the
+// BVH's node rows [R, 16] and triangle rows [n_tri, 12] (kernels/
+// traversal.py pack_bvh) it launches megakernel_fwd_bvh_kernel, with null
+// ones megakernel_fwd_kernel.  Returns cudaGetLastError() of the launch.
 extern "C" int tpt_megakernel_fwd(
     const float* tables, int n_sph, int n_quad, int n_tri,
     const int* state, const int* px, const int* py, float* out, int n,
     int spp, int max_bounces, int grid_n, int use_nee, int has_volumes,
     int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
     float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
-    float w, float h, float sub_scale, float inv_spp, void* stream) {
+    float w, float h, float sub_scale, float inv_spp, const float* view,
+    const float* rows, const float* tris, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const Params p = {n_sph,   n_quad,     n_tri,   n,       spp,
                     max_bounces, grid_n, use_nee, has_volumes,
@@ -142,52 +148,26 @@ extern "C" int tpt_megakernel_fwd(
                     p_light, bg_r,       bg_g,    bg_b,    aspect,
                     fov_factor,          w,       h,       sub_scale,
                     inv_spp};
-  const size_t smem_bytes = sizeof(float) * (size_t)scene_floats(p);
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        megakernel_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  megakernel_fwd_kernel<<<blocks, threads, smem_bytes,
-                          (cudaStream_t)stream>>>(tables, state, px, py, out,
-                                                  p);
-  return (int)cudaGetLastError();
-}
-
-// The BVH variant's entry point: the flat tables sph | quad | tri | light,
-// the view matrix [16] apart, the BVH's node rows [R, 16] and triangle rows
-// [n_tri, 12] (kernels/traversal.py pack_bvh), then tpt_megakernel_fwd's
-// arguments.  Returns cudaGetLastError() of the launch.
-extern "C" int tpt_megakernel_fwd_bvh(
-    const float* tables, const float* view, const float* rows,
-    const float* tris, int n_sph, int n_quad, int n_tri, const int* state,
-    const int* px, const int* py, float* out, int n, int spp,
-    int max_bounces, int grid_n, int use_nee, int has_volumes,
-    int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
-    float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
-    float w, float h, float sub_scale, float inv_spp, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const Params p = {n_sph,   n_quad,     n_tri,   n,       spp,
-                    max_bounces, grid_n, use_nee, has_volumes,
-                    rr_start_bounce,     t_min,   t_max,   inf,
-                    p_light, bg_r,       bg_g,    bg_b,    aspect,
-                    fov_factor,          w,       h,       sub_scale,
-                    inv_spp};
+  const bool walk = rows != nullptr;
+  const void* kernel = walk ? (const void*)megakernel_fwd_bvh_kernel
+                            : (const void*)megakernel_fwd_kernel;
   const size_t smem_bytes =
-      sizeof(float) * (size_t)scene_floats(bvh_shared_params(p));
+      sizeof(float) * (size_t)scene_floats(walk ? bvh_shared_params(p) : p);
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        megakernel_fwd_bvh_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  megakernel_fwd_bvh_kernel<<<blocks, threads, smem_bytes,
-                              (cudaStream_t)stream>>>(
-      tables, view, rows, tris, state, px, py, out, p);
+  if (walk) {
+    megakernel_fwd_bvh_kernel<<<blocks, threads, smem_bytes,
+                                (cudaStream_t)stream>>>(
+        tables, view, rows, tris, state, px, py, out, p);
+  } else {
+    megakernel_fwd_kernel<<<blocks, threads, smem_bytes,
+                            (cudaStream_t)stream>>>(tables, view, state, px,
+                                                    py, out, p);
+  }
   return (int)cudaGetLastError();
 }

@@ -161,38 +161,49 @@ extern "C" void tpt_bvh_walk_host(const float* origin, const float* direction,
   }
 }
 
-// The forward megakernel's BVH variant on the CPU (megakernel_fwd.cu
-// megakernel_fwd_bvh_kernel, with the arguments of tpt_megakernel_fwd_bvh):
-// what each block does to its shared memory, then trace_pixel through the
-// walk for every pixel.
-extern "C" void tpt_megakernel_fwd_bvh_host(
-    const float* tables, const float* view, const float* rows,
-    const float* tris, int n_sph, int n_quad, int n_tri, const int* state,
+// The forward megakernel on the CPU (megakernel_fwd.cu, with the arguments
+// of its entry point tpt_megakernel_fwd but the stream): what each block
+// does to its shared memory, then trace_pixel for every pixel, through the
+// walk where rows are given (megakernel_fwd_bvh_kernel), else through the
+// triangle loop over shared memory (megakernel_fwd_kernel).
+extern "C" void tpt_megakernel_fwd_host(
+    const float* tables, int n_sph, int n_quad, int n_tri, const int* state,
     const int* px, const int* py, float* out, int n, int spp,
     int max_bounces, int grid_n, int use_nee, int has_volumes,
     int rr_start_bounce, float t_min, float t_max, float inf, float p_light,
     float bg_r, float bg_g, float bg_b, float aspect, float fov_factor,
-    float w, float h, float sub_scale, float inv_spp) {
+    float w, float h, float sub_scale, float inv_spp, const float* view,
+    const float* rows, const float* tris) {
   const tpt::Params p = {n_sph,   n_quad,     n_tri,   n,       spp,
                          max_bounces, grid_n, use_nee, has_volumes,
                          rr_start_bounce,     t_min,   t_max,   inf,
                          p_light, bg_r,       bg_g,    bg_b,    aspect,
                          fov_factor,          w,       h,       sub_scale,
                          inv_spp};
-  const tpt::Params ps = tpt::bvh_shared_params(p);
+  const bool walk = rows != nullptr;
+  const tpt::Params ps = walk ? tpt::bvh_shared_params(p) : p;
   std::vector<float> shared(tpt::scene_floats(ps));
   for (int k = 0; k < tpt::table_floats(ps); ++k) {
-    shared[k] = tpt::bvh_shared_float(p, tables, view, k);
+    shared[k] = tpt::fwd_shared_float(p, walk, tables, view, k);
   }
   for (int k = 0; k < tpt::scene_invariants(ps); ++k) {
     tpt::prepare_scene(ps, shared.data(), k);
   }
+  if (walk) {
+    const tpt::Tables<const float> S =
+        tpt::bvh_tables_at(shared.data(), p, tables);
+    const tpt::BvhTris bvh = {rows, tris};
+    for (int i = 0; i < n; ++i) {
+      tpt::trace_pixel(p, S, (uint32_t)state[i], (float)px[i], (float)py[i],
+                       out + 3 * i, bvh);
+    }
+    return;
+  }
   const tpt::Tables<const float> S =
-      tpt::bvh_tables_at(shared.data(), p, tables);
-  const tpt::BvhTris walk = {rows, tris};
+      tpt::tables_at<const float>(shared.data(), p);
   for (int i = 0; i < n; ++i) {
     tpt::trace_pixel(p, S, (uint32_t)state[i], (float)px[i], (float)py[i],
-                     out + 3 * i, walk);
+                     out + 3 * i);
   }
 }
 

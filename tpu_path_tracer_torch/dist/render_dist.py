@@ -31,7 +31,7 @@ from .sharding import (all_reduce_sum_, mesh_rank, mesh_size,
 
 __all__ = ["make_sharded_frame_fn", "make_sharded_loss_fn", "make_train_step",
            "measure_scaling", "pad_to_multiple", "padded_pixels",
-           "sum_grads"]
+           "pixel_radiance", "sum_grads"]
 
 
 def padded_pixels(cfg: RenderConfig, mesh=None) -> int:
@@ -40,24 +40,32 @@ def padded_pixels(cfg: RenderConfig, mesh=None) -> int:
     return pad_to_multiple(cfg.width * cfg.height, mesh_size(mesh) * 8)
 
 
-def _pixel_radiance(pix, frame_num, view_matrix, scene, meta, cfg):
-    """Trace the given flat pixel indices for one progressive frame."""
-    px = pix % cfg.width
-    py = pix // cfg.width
+def _view(view_matrix, device):
+    return torch.as_tensor(view_matrix, dtype=torch.float32, device=device)
+
+
+def pixel_radiance(pix, frame_num, view_matrix, scene: SceneData,
+                   meta: SceneMeta, cfg: RenderConfig):
+    """Radiance ``[N, 3]`` of the global row-major pixel indices ``pix``
+    (int64) in one progressive frame, the step every frame, loss and
+    check takes: their (px, py), their PCG seeds from (pixel, frame)
+    (``main.wgsl:16``) and ``path_trace_pixels``.  ``view_matrix`` is
+    taken onto ``pix``'s device as float32 here, once."""
     rand_state = rng.seed(pix, frame_num)
-    _, radiance = path_trace_pixels(rand_state, view_matrix, px, py, scene,
+    _, radiance = path_trace_pixels(rand_state, _view(view_matrix, pix.device),
+                                    pix % cfg.width, pix // cfg.width, scene,
                                     meta, cfg)
     return radiance
+
+
+# The name benchmark/tests/test_bench_correct.py plants its fault with.
+_pixel_radiance = pixel_radiance
 
 
 def _local_pixels(n_local: int, mesh, device):
     """This rank's global pixel indices, pad rows (``py == H``) included."""
     return (mesh_rank(mesh) * n_local
             + torch.arange(n_local, dtype=torch.int64, device=device))
-
-
-def _view(view_matrix, device):
-    return torch.as_tensor(view_matrix, dtype=torch.float32, device=device)
 
 
 def make_sharded_frame_fn(mesh, meta: SceneMeta, cfg: RenderConfig):
@@ -67,9 +75,8 @@ def make_sharded_frame_fn(mesh, meta: SceneMeta, cfg: RenderConfig):
 
     def frame(fb, frame_num, reset, view_matrix, scene):
         pix = _local_pixels(fb.shape[0], mesh, fb.device)
-        radiance = _pixel_radiance(pix, frame_num,
-                                   _view(view_matrix, fb.device), scene,
-                                   meta, cfg)
+        radiance = pixel_radiance(pix, frame_num, view_matrix, scene, meta,
+                                  cfg)
         return film.accumulate(fb, radiance, reset)
 
     return frame
@@ -104,9 +111,8 @@ def make_sharded_loss_fn(mesh, base_scene: SceneData, meta: SceneMeta,
         scene = apply_params(base_scene, params)
         n_local = target.shape[0]
         pix = _local_pixels(n_local, mesh, target.device)
-        radiance = _pixel_radiance(pix, frame_num,
-                                   _view(view_matrix, target.device), scene,
-                                   meta, cfg)
+        radiance = pixel_radiance(pix, frame_num, view_matrix, scene, meta,
+                                  cfg)
         share = (torch.sum((radiance - target) ** 2)
                  / float(n_local * mesh_size(mesh) * 3))
         return share if mesh is None else _SumOverRanks.apply(share, mesh)

@@ -19,7 +19,6 @@ import torch
 from ..core import rng, vecmath as vm
 from ..core.config import PI, RenderConfig
 from ..core.types import Ray, SceneData, SceneMeta
-from . import film
 from .path_tracer import trace
 
 
@@ -60,19 +59,20 @@ def path_trace_pixels(rand_state, view_matrix, px, py, scene: SceneData,
     """``pathTrace`` (``shootRay.wgsl:5-49``): average the samples of each
     pixel.  Returns (rand_state, radiance [N, 3]).
 
-    With ``cfg.use_megakernel`` set and a scene the kernel supports, the
-    whole trace is one launch of the CUDA megakernel, and its gradient one
-    launch of the backward kernel (``kernels.megakernel``; on CPU tensors
-    their plain version, this wavefront under autograd).  A BVH scene above
-    64 triangles takes it only without gradients (``mk.routes``): the
-    backward does not cover it.  That route returns the caller's
-    ``rand_state`` unchanged, as in the JAX package: callers reseed every
-    frame from (pixel, frame)."""
+    ``kernels.megakernel.route`` decides once which tracer runs: with
+    ``cfg.use_megakernel`` set and a scene the kernel covers, the whole
+    trace is one launch of the CUDA megakernel, and its gradient one launch
+    of the backward kernel (on CPU tensors their plain version, this
+    wavefront under autograd); a BVH scene above 64 triangles takes it only
+    without gradients, since the backward does not cover it.  That route
+    returns the caller's ``rand_state`` unchanged, as in the JAX package:
+    callers reseed every frame from (pixel, frame)."""
     from ..kernels import megakernel as mk
 
-    if cfg.use_megakernel and mk.routes(scene, meta, cfg, view_matrix):
+    chosen = mk.route(scene, meta, cfg, view_matrix, px.device)
+    if chosen.tracer != mk.WAVEFRONT:
         radiance = mk.path_trace_pixels_megakernel(
-            rand_state, view_matrix, px, py, scene, meta, cfg)
+            rand_state, view_matrix, px, py, scene, meta, cfg, chosen)
         return rand_state, radiance
 
     total = torch.zeros((px.shape[0], 3), dtype=torch.float32,
@@ -113,11 +113,9 @@ def render_frame(framebuffer, frame_num: int, reset: bool, view_matrix,
     returned.  ``frame_num`` decorrelates the per-pixel PCG seeds across
     frames (``main.wgsl:16``); ``reset`` overwrites instead of
     accumulating.  ``view_matrix`` is the 4x4 camera matrix, taken onto the
-    framebuffer's device as float32."""
-    device = framebuffer.device
-    view = torch.as_tensor(view_matrix, dtype=torch.float32, device=device)
-    pix, px, py = pixel_grid(cfg.width, cfg.height, device)
-    rand_state = rng.seed(pix, frame_num)
-    _, radiance = path_trace_pixels(rand_state, view, px, py, scene, meta,
-                                    cfg)
-    return film.accumulate(framebuffer, radiance, reset)
+    framebuffer's device as float32.  The frame is the sharded renderer's
+    on one process (``dist.render_dist.make_sharded_frame_fn``)."""
+    from ..dist.render_dist import make_sharded_frame_fn
+
+    return make_sharded_frame_fn(None, meta, cfg)(
+        framebuffer, frame_num, reset, view_matrix, scene)

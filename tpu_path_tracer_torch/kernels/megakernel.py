@@ -17,24 +17,23 @@ shading and Russian roulette, so ray state never leaves registers.
   (:func:`fold_rows`) folds the rows in a fixed order, so the gradients
   have the same bits every run, as the JAX kernel's sequential grid gives.
 
-Routing by scene: the forward kernel takes spheres, quads and at most
-``MAX_MEGAKERNEL_TRIS`` triangles, tested one by one from shared memory;
-and, in a second instantiation (``megakernel_fwd_bvh_kernel``), a scene
-with a BVH above that, whose hit search walks the BVH as the traversal
-kernel does (``csrc/bvh_walk.cuh``), so a mesh frame is one launch.  The
-backward covers only the first kind: ``integrator.render`` sends a BVH
-scene through this route only when no gradients are wanted
-(:func:`routes`), and training on it keeps the wavefront.  Scenes of 65 to
-256 triangles (the builder's brute-force sweep, no BVH) keep the
-wavefront.
+Routing by scene, decided once per render by :func:`route`: the forward
+kernel takes spheres, quads and at most ``MAX_MEGAKERNEL_TRIS`` triangles,
+tested one by one from shared memory; and, in a second instantiation
+(``megakernel_fwd_bvh_kernel``) behind the same entry point, a scene with a
+BVH above that, whose hit search walks the BVH as the traversal kernel
+does (``csrc/bvh_walk.cuh``), so a mesh frame is one launch.  The backward
+covers only the first kind: training on a BVH scene keeps the wavefront.
+Scenes of 65 to 256 triangles (the builder's brute-force sweep, no BVH)
+keep the wavefront.
 
 Without gradients, the CUDA route packs a scene's tables once and reuses
 the flat buffer while the scene's tensors are unchanged
-(:func:`_scene_tables`); each frame adds only the view matrix (apart, on
-the BVH route, so that no frame copies the triangle table).  The BVH's
-node and triangle rows are packed with the tables and kept beside them; a
-refit or an edit repacks.  A write that leaves a tensor's version counter
-as it was goes unseen: call :func:`clear_table_cache` after one.
+(:func:`_scene_tables`); the kernel takes the view matrix apart, so no
+frame copies the tables.  The BVH's node and triangle rows are packed
+with the tables and kept beside them; a refit or an edit repacks.  A
+write that leaves a tensor's version counter as it was goes unseen: call
+:func:`clear_table_cache` after one.
 
 Their contract is the JAX kernel's (``megakernel.py:23-28``): draw for draw
 the same PCG stream and bounce algebra as the wavefront integrator, which
@@ -51,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import math
 import operator
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -171,42 +171,70 @@ def resolved_spp(cfg: RenderConfig) -> int:
             if cfg.stratify else cfg.samples_per_pixel)
 
 
-def walks_bvh(scene: SceneData, meta: SceneMeta) -> bool:
-    """Whether the forward kernel's hit search walks the scene's BVH for
-    its triangles: a BVH scene above ``MAX_MEGAKERNEL_TRIS`` triangles."""
-    return (scene.triangles.count > MAX_MEGAKERNEL_TRIS
-            and meta.traversal == "bvh" and scene.bvh is not None)
+# The tracers a render may take (:func:`route`).
+WAVEFRONT, TABLES, BVH = "wavefront", "tables", "bvh"
 
 
-def supported(scene: SceneData, meta: SceneMeta, cfg: RenderConfig) -> bool:
-    """Whether the forward megakernel covers this scene: spheres, quads and
-    at most ``MAX_MEGAKERNEL_TRIS`` triangles, or any number through the
-    scene's BVH (:func:`walks_bvh`); and at least one primitive."""
-    return ((scene.triangles.count <= MAX_MEGAKERNEL_TRIS
-             or walks_bvh(scene, meta))
-            and (scene.spheres.count + scene.quads.count
-                 + scene.triangles.count) > 0)
+class Route(NamedTuple):
+    """What :func:`route` decided for one render: its tracer
+    (``WAVEFRONT``, ``TABLES`` or ``BVH``) and whether autograd records a
+    graph through it."""
+
+    tracer: str
+    grad: bool
 
 
-def vjp_supported(scene: SceneData, meta: SceneMeta,
-                  cfg: RenderConfig) -> bool:
-    """Whether the differentiable megakernel route applies: the backward
-    kernel takes at most ``MAX_MEGAKERNEL_TRIS`` triangles, and the JAX
-    backward kernel unrolls ``max_bounces * spp`` bounce bodies, so deep
-    configurations keep the wavefront (megakernel.py:756-762)."""
-    return (supported(scene, meta, cfg)
-            and scene.triangles.count <= MAX_MEGAKERNEL_TRIS
-            and cfg.max_bounces * resolved_spp(cfg) <= MAX_UNROLL_BOUNCES)
+def route(scene: SceneData, meta: SceneMeta, cfg: RenderConfig,
+          view_matrix, device, required: bool = False) -> Route:
+    """Which tracer takes a render, decided once per call:
 
+    * ``TABLES``: the fused kernel over the scene's tables in shared
+      memory (spheres, quads, at most ``MAX_MEGAKERNEL_TRIS`` triangles),
+      and with gradients its backward;
+    * ``BVH``: the fused kernel whose hit search walks the scene's BVH, for
+      a BVH scene above ``MAX_MEGAKERNEL_TRIS`` triangles without
+      gradients (the backward does not cover it);
+    * ``WAVEFRONT``: the rest: ``cfg.use_megakernel`` off, a scene of 65 to
+      256 triangles (no BVH), a scene without primitives, or a BVH scene
+      with gradients.
 
-def routes(scene: SceneData, meta: SceneMeta, cfg: RenderConfig,
-           view_matrix) -> bool:
-    """Whether ``integrator.render.path_trace_pixels`` hands this render to
-    the megakernel (with ``cfg.use_megakernel`` set): a scene it supports,
-    and, for a scene whose BVH it walks, no gradients wanted, since the
-    backward does not cover it; training there keeps the wavefront."""
-    return supported(scene, meta, cfg) and not (
-        walks_bvh(scene, meta) and _wants_grad(scene, view_matrix))
+    ``integrator.render.path_trace_pixels`` asks.  With ``required``
+    (:func:`path_trace_pixels_megakernel` called as it is) the megakernel
+    takes the render whatever ``cfg.use_megakernel`` and the scene's size
+    say, and gradients of a BVH scene raise instead.
+
+    A kernel on a device other than the CPU (its plain version) or CUDA
+    raises ``ValueError``.  Gradients the backward cannot take raise
+    ``NotImplementedError``: of a BVH scene, and of a configuration over
+    the unroll budget, since the JAX backward kernel unrolls
+    ``max_bounces * spp`` bounce bodies (megakernel.py:756-762)."""
+    n_tri = scene.triangles.count
+    walks = (n_tri > MAX_MEGAKERNEL_TRIS and meta.traversal == "bvh"
+             and scene.bvh is not None)
+    if not required and (
+            not cfg.use_megakernel or (n_tri > MAX_MEGAKERNEL_TRIS
+                                       and not walks)
+            or scene.spheres.count + scene.quads.count + n_tri == 0):
+        return Route(WAVEFRONT, False)
+    grad = _wants_grad(scene, view_matrix)
+    if walks and grad and not required:
+        return Route(WAVEFRONT, grad)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"megakernel: no route for device {device}")
+    if grad and walks:
+        raise NotImplementedError(
+            f"the megakernel backward takes at most {MAX_MEGAKERNEL_TRIS} "
+            f"triangles, not a BVH scene of {n_tri}; "
+            f"integrator.render.path_trace_pixels sends training on it "
+            f"through the wavefront")
+    spp = resolved_spp(cfg)
+    if grad and cfg.max_bounces * spp > MAX_UNROLL_BOUNCES:
+        raise NotImplementedError(
+            f"megakernel backward unrolls max_bounces*spp = "
+            f"{cfg.max_bounces * spp} bounce bodies (budget "
+            f"{MAX_UNROLL_BOUNCES}); use the wavefront integrator "
+            f"(use_megakernel=False) for deep-bounce training")
+    return Route(BVH if walks else TABLES, grad)
 
 
 def path_trace_pixels_reference(rand_state, view_matrix, px, py,
@@ -308,29 +336,6 @@ def _wants_grad(scene: SceneData, view_matrix) -> bool:
         if isinstance(t, torch.Tensor))
 
 
-def _check_backward(scene: SceneData, meta: SceneMeta, cfg: RenderConfig):
-    """Raise where the backward kernel cannot take the render: a scene
-    whose BVH the forward walks, or a configuration over the unroll
-    budget."""
-    if walks_bvh(scene, meta):
-        raise NotImplementedError(
-            f"the megakernel backward takes at most {MAX_MEGAKERNEL_TRIS} "
-            f"triangles, not a BVH scene of {scene.triangles.count}; "
-            f"integrator.render.path_trace_pixels sends training on it "
-            f"through the wavefront")
-    _check_unroll_budget(cfg)
-
-
-def _check_unroll_budget(cfg: RenderConfig):
-    spp = resolved_spp(cfg)
-    if cfg.max_bounces * spp > MAX_UNROLL_BOUNCES:
-        raise NotImplementedError(
-            f"megakernel backward unrolls max_bounces*spp = "
-            f"{cfg.max_bounces * spp} bounce bodies (budget "
-            f"{MAX_UNROLL_BOUNCES}); use the wavefront integrator "
-            f"(use_megakernel=False) for deep-bounce training")
-
-
 def _int32(x):
     """The uint32 values of an int64 tensor as int32 bit patterns."""
     x = x.to(torch.int64) & 0xFFFFFFFF
@@ -340,9 +345,9 @@ def _int32(x):
 
 def _scalar_args(scene: SceneData, meta: SceneMeta, cfg: RenderConfig,
                  n: int):
-    """The launch arguments after the buffers, as both C entry points
-    take them: n, spp, max_bounces, grid_n, use_nee, has_volumes,
-    rr_start_bounce, then the float parameters."""
+    """The launch arguments after the buffers, as the forward and backward
+    entry points take them: n, spp, max_bounces, grid_n, use_nee,
+    has_volumes, rr_start_bounce, then the float parameters."""
     spp = resolved_spp(cfg)
     grid_n = max(int(cfg.samples_per_pixel ** 0.5), 1) if cfg.stratify else 0
     w, h = np.float32(cfg.width), np.float32(cfg.height)
@@ -366,7 +371,7 @@ def _bind(lib):
     fwd, bwd = lib.tpt_megakernel_fwd, lib.tpt_megakernel_bwd
     fold = lib.tpt_megakernel_bwd_fold
     if fwd.argtypes is None:
-        fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p]
+        fwd.argtypes = [p, i, i, i, p, p, p, p] + scalars + [p] * 4
         fwd.restype = ctypes.c_int
         bwd.argtypes = [p, i, i, i, p, p, p, p, p, p] + scalars + [p]
         bwd.restype = ctypes.c_int
@@ -390,68 +395,59 @@ def _counts(scene: SceneData):
     return (scene.spheres.count, scene.quads.count, scene.triangles.count)
 
 
-def _prepare(rand_state, px, py, tables, scene: SceneData):
-    """Device buffers both kernels read: the flat tables and the int32
-    state and pixel coordinates."""
-    flat = torch.cat([t.detach().reshape(-1) for t in tables])
-    flat = flat.to(device=px.device, dtype=torch.float32).contiguous()
+def _check_smem(scene: SceneData, walks: bool):
+    """Raise where a block's shared memory cannot hold what the kernel puts
+    there: for the BVH variant the tables without their triangles; else
+    what the backward's block holds, the forward's budget too."""
+    if walks:
+        smem = fwd_bvh_smem_bytes(scene)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"the megakernel's BVH variant holds the "
+                             f"spheres, quads, light and camera in {smem} "
+                             f"bytes of shared memory, at most "
+                             f"{MAX_SMEM_BYTES} bytes a block may use")
+        return
     smem = bwd_smem_bytes(scene)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"megakernel scene tables take {flat.numel() * 4} "
-                         f"bytes; the backward's block holds them, their "
-                         f"invariants, their gradients and its threads' "
-                         f"slots in {smem} bytes of shared memory, at most "
-                         f"{MAX_SMEM_BYTES} bytes a block may use")
+        raise ValueError(f"megakernel scene tables take "
+                         f"{_table_floats(scene) * 4} bytes; the backward's "
+                         f"block holds them, their invariants, their "
+                         f"gradients and its threads' slots in {smem} bytes "
+                         f"of shared memory, at most {MAX_SMEM_BYTES} bytes "
+                         f"a block may use")
+
+
+def _prepare(rand_state, px, py, tables, scene: SceneData):
+    """Device buffers the backward reads, and the forward beside it: the
+    flat tables with the view matrix last, and the int32 state and pixel
+    coordinates."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tables])
+    flat = flat.to(device=px.device, dtype=torch.float32).contiguous()
+    _check_smem(scene, False)
     return (flat, _counts(scene), *_pixels(rand_state, px, py))
 
 
-def _launch_fwd(flat, counts, state, px32, py32, scene, meta, cfg):
-    """Launch the forward kernel on the current stream; returns
-    ``[N, 3]``."""
+def _launch_fwd(packed, view, state, px32, py32, scene, meta, cfg):
+    """Launch the forward kernel on the current stream: ``packed`` is the
+    flat tables sph | quad | tri | light, followed, for the BVH variant, by
+    the BVH's node and triangle rows; ``view`` holds the 16 floats of the
+    view matrix.  Returns ``[N, 3]``."""
     from . import _build
 
     with profiling.span("megakernel.launch"):
+        flat, *bvh_rows = packed
         n = px32.shape[0]
         out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
         stream = torch.cuda.current_stream(px32.device).cuda_stream
+        rows = [t.data_ptr() for t in bvh_rows] or [None, None]
         fwd = _bind(_build.load())[0]
-        err = fwd(flat.data_ptr(), *counts, state.data_ptr(),
+        err = fwd(flat.data_ptr(), *_counts(scene), state.data_ptr(),
                   px32.data_ptr(), py32.data_ptr(), out.data_ptr(),
-                  *_scalar_args(scene, meta, cfg, n), stream)
+                  *_scalar_args(scene, meta, cfg, n), view.data_ptr(),
+                  *rows, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    profiling.count("megakernel_fwd")
-    return out
-
-
-def _bind_bvh(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.tpt_megakernel_fwd_bvh
-    if fn.argtypes is None:
-        fn.argtypes = [p] * 4 + [i] * 3 + [p] * 4 + [i] * 7 + [f] * 13 + [p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch_fwd_bvh(packed, view, state, px32, py32, scene, meta, cfg):
-    """Launch the forward kernel's BVH variant on the current stream with
-    the scene's packed buffers ``(flat tables, node rows, triangle rows)``
-    and the view matrix apart; returns ``[N, 3]``."""
-    from . import _build
-
-    with profiling.span("megakernel.launch"):
-        flat, rows, tri_rows = packed
-        n = px32.shape[0]
-        out = torch.empty((n, 3), dtype=torch.float32, device=px32.device)
-        stream = torch.cuda.current_stream(px32.device).cuda_stream
-        fwd = _bind_bvh(_build.load())
-        err = fwd(flat.data_ptr(), view.data_ptr(), rows.data_ptr(),
-                  tri_rows.data_ptr(), *_counts(scene), state.data_ptr(),
-                  px32.data_ptr(), py32.data_ptr(), out.data_ptr(),
-                  *_scalar_args(scene, meta, cfg, n), stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    profiling.count("megakernel_fwd_bvh")
+    profiling.count("megakernel_fwd_bvh" if bvh_rows else "megakernel_fwd")
     return out
 
 
@@ -554,9 +550,11 @@ class _Megakernel(torch.autograd.Function):
 
 def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
                                  scene: SceneData, meta: SceneMeta,
-                                 cfg: RenderConfig):
+                                 cfg: RenderConfig, chosen: Route = None):
     """Radiance ``[N, 3]`` of pixels (px, py) from PCG states
-    ``rand_state`` (int64 in ``[0, 2**32)``), through the megakernel.
+    ``rand_state`` (int64 in ``[0, 2**32)``), through the megakernel, by
+    the tracer ``chosen`` (:func:`route`; decided here, with ``required``,
+    when not given).
 
     CPU tensors run the plain version, the wavefront, which autograd
     differentiates; CUDA tensors launch the forward kernel, and the
@@ -569,64 +567,51 @@ def path_trace_pixels_megakernel(rand_state, view_matrix, px, py,
     that leaves the version as it was (``.data``, a numpy view, a fused
     optimizer step on parameters held detached) goes unseen until
     :func:`clear_table_cache`."""
-    device = px.device
-    if device.type == "cpu":
-        if _wants_grad(scene, view_matrix):
-            _check_backward(scene, meta, cfg)
+    if chosen is None:
+        chosen = route(scene, meta, cfg, view_matrix, px.device,
+                       required=True)
+    if px.device.type == "cpu":
         return path_trace_pixels_reference(rand_state, view_matrix, px, py,
                                            scene, meta, cfg)
-    if device.type != "cuda":
-        raise ValueError(f"megakernel: no route for device {device}")
-    return _kernel_route(rand_state, view_matrix, px, py, scene, meta, cfg)
+    return _kernel_route(rand_state, view_matrix, px, py, scene, meta, cfg,
+                         chosen)
 
 
 def _kernel_route(rand_state, view_matrix, px, py, scene: SceneData,
-                  meta: SceneMeta, cfg: RenderConfig):
-    """The CUDA route of :func:`path_trace_pixels_megakernel`: pack the
-    scene's tables (with gradients wanted through differentiable ops every
-    call, else once per scene), prepare the kernels' buffers, and apply the
-    autograd node that launches them; a scene whose BVH the kernel walks
-    goes to :func:`_bvh_route`."""
-    grad = _wants_grad(scene, view_matrix)
-    if grad:
-        _check_backward(scene, meta, cfg)
-    if walks_bvh(scene, meta):
-        return _bvh_route(rand_state, view_matrix, px, py, scene, meta, cfg)
+                  meta: SceneMeta, cfg: RenderConfig, chosen: Route = None):
+    """The CUDA route of :func:`path_trace_pixels_megakernel` for the
+    tracer ``chosen`` (decided here when not given).  Without gradients:
+    the scene's tables, and for the BVH variant its BVH's rows, packed once
+    per scene, the view matrix apart, and one launch.  With gradients: the
+    tables packed through differentiable ops every call, with the view
+    last, and the autograd node that launches the forward and the
+    backward."""
+    if chosen is None:
+        chosen = route(scene, meta, cfg, view_matrix, px.device,
+                       required=True)
+    if view_matrix.shape != (4, 4):
+        raise ValueError(f"view_matrix must be [4, 4], got "
+                         f"{tuple(view_matrix.shape)}")
+    walks = chosen.tracer == BVH
+    if not chosen.grad:
+        with profiling.span("megakernel.pack_tables"):
+            packed = _scene_tables(scene, px.device, walks)
+            view = view_matrix.detach().to(device=px.device,
+                                           dtype=torch.float32).contiguous()
+        with profiling.span("megakernel.prepare"):
+            _check_smem(scene, walks)
+            state, px32, py32 = _pixels(rand_state, px, py)
+        return _launch_fwd(packed, view, state, px32, py32, scene, meta, cfg)
     with profiling.span("megakernel.pack_tables"):
-        view = view_matrix.to(torch.float32)
-        tables = (pack_tables(scene) if grad
-                  else _scene_tables(scene, px.device)) + (view,)
+        tables = pack_tables(scene) + (view_matrix.to(torch.float32),)
     with profiling.span("megakernel.prepare"):
         flat, counts, state, px32, py32 = _prepare(rand_state, px, py,
                                                    tables, scene)
     launch = {
-        "fwd": lambda: _launch_fwd(flat, counts, state, px32, py32, scene,
-                                   meta, cfg),
+        "fwd": lambda: _launch_fwd((flat,), flat[-CAM_COLS:], state, px32,
+                                   py32, scene, meta, cfg),
         "bwd": lambda g: _launch_bwd(flat, counts, state, px32, py32, g,
                                      scene, meta, cfg),
         "shapes": [tuple(t.shape) for t in tables],
     }
     return _Megakernel.apply(launch, *tables)
-
-
-def _bvh_route(rand_state, view_matrix, px, py, scene: SceneData,
-               meta: SceneMeta, cfg: RenderConfig):
-    """The forward kernel's BVH variant, without gradients: the scene's
-    tables and BVH rows packed once per scene, the view matrix apart, and
-    one launch."""
-    with profiling.span("megakernel.pack_tables"):
-        packed = _scene_tables(scene, px.device, bvh=True)
-        view = view_matrix.detach().to(device=px.device,
-                                       dtype=torch.float32).contiguous()
-    with profiling.span("megakernel.prepare"):
-        smem = fwd_bvh_smem_bytes(scene)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"the megakernel's BVH variant holds the "
-                             f"spheres, quads, light and camera in {smem} "
-                             f"bytes of shared memory, at most "
-                             f"{MAX_SMEM_BYTES} bytes a block may use")
-        if view.shape != (4, 4):
-            raise ValueError(f"view_matrix must be [4, 4], got "
-                             f"{tuple(view.shape)}")
-        state, px32, py32 = _pixels(rand_state, px, py)
-    return _launch_fwd_bvh(packed, view, state, px32, py32, scene, meta, cfg)

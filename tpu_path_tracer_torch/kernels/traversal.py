@@ -22,9 +22,10 @@ child-pair node rows packed by :func:`pack_bvh`, and breaks ties by index,
 so it returns the same triangle and the same t (the argument is in the
 kernel's source note).
 
-``PAIR_DISPATCH`` routes :func:`closest_hit` through the ray-major pair
-sweeps of ``kernels.pair_sweep`` instead, as the JAX package's
-``PAIR_DISPATCH_KMAX`` does; like it, it is off.
+The ray-major pair sweeps of ``kernels.pair_sweep`` answer the same
+question and are kept as measured alternatives (PERF.md); the JAX
+package's ``PAIR_DISPATCH_KMAX`` routes to them, off by default, and
+:func:`closest_hit` always walks.
 """
 
 from __future__ import annotations
@@ -35,16 +36,7 @@ import torch
 
 from ..core.types import FlatBVH, Triangles
 from ..utils import profiling
-from . import intersect, pair_sweep
-
-# The route of closest_hit: None is the BVH walk (csrc/traversal.cu on the
-# card); "pairbin" and "pair" send BVH scenes through
-# pair_sweep.pairbin_closest_hit and pair_sweep.pair_closest_hit.  A module
-# constant that tests and chip_smoke.py set, not an option: the pair sweeps
-# are kept as measured alternatives (PERF.md), and the walk stays the route.
-PAIR_DISPATCH = None
-_PAIR_ROUTES = {"pairbin": pair_sweep.pairbin_closest_hit,
-                "pair": pair_sweep.pair_closest_hit}
+from . import intersect
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -329,11 +321,7 @@ def closest_hit(origin, direction, bvh: FlatBVH, tris: Triangles,
     returns (t [N], tri_index [N] int64), t = INF and index -1 on a miss.
 
     CPU tensors run the plain walk (:func:`bvh_closest_hit`); CUDA tensors
-    launch the CUDA kernel or raise.  With ``PAIR_DISPATCH`` set, the named
-    pair sweep answers instead, under the same rule."""
-    if PAIR_DISPATCH is not None:
-        return _PAIR_ROUTES[PAIR_DISPATCH](origin, direction, bvh, tris,
-                                           t_min, t_best0)
+    launch the CUDA kernel or raise."""
     device = origin.device
     if device.type == "cpu":
         return bvh_closest_hit(origin, direction, bvh, tris, t_min, t_best0,

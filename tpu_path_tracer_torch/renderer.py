@@ -4,8 +4,8 @@
 Owns the framebuffer, the frame counter, the camera-motion reset, the FPS
 cap, the stats, the periodic perf log and checkpoint/resume, and maps the
 reference's loop (``renderer.js:163-215``) onto the frame of
-``dist.render_dist.make_sharded_frame_fn`` (in one process, that of
-``integrator.render.render_frame``):
+``dist.render_dist.make_sharded_frame_fn`` (in one process, the frame
+``integrator.render.render_frame`` renders):
 
 * FPS cap via sleep (``renderer.js:206-209``);
 * stats and perf logs behind the same flags as ``renderParams``

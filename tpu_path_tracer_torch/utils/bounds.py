@@ -156,9 +156,10 @@ def megakernel_bound(scene, meta, cfg, eye, backward):
     pix, px, py = pixel_grid(cfg.width, cfg.height, device)
     view = torch.as_tensor(Camera(eye=eye, center=[0, 0, 0]).view_matrix,
                            device=device)
-    walks = mk.walks_bvh(scene, meta)
     with contextlib.ExitStack() as stack:
         stack.enter_context(torch.no_grad())
+        walks = mk.route(scene, meta, cfg, view, device,
+                         required=True).tracer == mk.BVH
         stack.enter_context(counted_work(work, scene))
         n_rows = (stack.enter_context(counted_walks(work, scene)) if walks
                   else 0)
